@@ -3,8 +3,9 @@
 
 Generates a ~10k-triangle sphere-in-room mesh, writes it to OBJ/MTL,
 re-imports it with the OBJ loader, builds the SAH BVH, and renders it
-(auto backend: the coherent-beam megakernel on TPU) — the workload class the reference GPU cannot run at
-all (its uniform arrays cap at MAX_TRIANGLES=300, shader.h:76).
+(auto backend: a BVH traversal, see policy.py) — the workload class the
+reference GPU cannot run at all (its uniform arrays cap at
+MAX_TRIANGLES=300, shader.h:76).
 
 Usage: python examples/sphere_obj.py out.png [--res 256] [--spp 64]
 """
@@ -31,9 +32,8 @@ def main():
     ap.add_argument("--n-lat", type=int, default=50)
     ap.add_argument("--n-lon", type=int, default=100)
     ap.add_argument("--backend", default="auto",
-                    help="auto picks the coherent-beam megakernel on TPU "
-                         "(8.0e7 rays/s on this scene); 'cluster'/'bvh' "
-                         "keep per-pixel-independent sampling")
+                    help="auto: the platform's BVH traversal (policy.py); "
+                         "or 'bvh' / 'bvh-gather' / 'brute'")
     args = ap.parse_args()
 
     cam, sb = meshes.sphere_in_box(args.n_lat, args.n_lon)

@@ -1,4 +1,4 @@
-// Native helpers for the TPU path tracer (the analog of the reference's
+// Native helpers for the path tracer (the analog of the reference's
 // native C++ components: the fpng PNG encoder and the in-header C++ SAH BVH
 // builder, /root/reference/pathtracer/fpng.cc and bvh.h:48-155).
 //

@@ -1,4 +1,4 @@
-"""Pinhole camera (L2), TPU-native port of ``/root/reference/pathtracer/camera.h``.
+"""Pinhole camera (L2), batched port of ``/root/reference/pathtracer/camera.h``.
 
 The reference stores the camera basis in a flat row-major 4x4 transform
 (rows = right, up, -forward, pos; camera.h:27-58) and generates one ray per

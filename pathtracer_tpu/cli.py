@@ -18,6 +18,8 @@ import sys
 
 import numpy as np
 
+from . import policy
+
 
 def _parse_camera(spec, res):
     from .camera import make_camera
@@ -66,8 +68,7 @@ def main(argv=None):
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "brute", "bvh", "bvh-gather", "cluster",
-                            "pallas"])
+                   choices=list(policy.RENDER_BACKENDS))
     p.add_argument("--camera", help="pos:forward[:up[:fov_deg]] e.g. "
                                     "'278,278,-500:0,0,1'")
     p.add_argument("--roughness", type=float, default=0.0)
@@ -113,16 +114,17 @@ def main(argv=None):
     p.add_argument("--checkpoint", help="resume file (.npz): created if "
                    "missing, resumed from if present")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "brute", "bvh", "cluster"],
+                   choices=list(policy.DIFF_BACKENDS),
                    help="intersection backend for the differentiable "
-                        "renders (auto: brute for small scenes, bvh for "
-                        "OBJ-scale)")
+                        "renders (auto: brute for small scenes, a BVH "
+                        "traversal for OBJ-scale; see policy.py)")
 
     p = sub.add_parser("bench", help="headline throughput benchmark")
     p.add_argument("--res", type=int, default=1024)
     p.add_argument("--spp", type=int, default=512)
     p.add_argument("--depth", type=int, default=5)
-    p.add_argument("--backend", default="pallas")
+    p.add_argument("--backend", default="auto",
+                   choices=list(policy.RENDER_BACKENDS))
 
     args = ap.parse_args(argv)
 
@@ -160,9 +162,7 @@ def main(argv=None):
         from . import diff
         from .inverse import recover_materials
         cam, sc = _load_scene(args.scene, (args.res, args.res))
-        backend = args.backend
-        if backend == "auto":
-            backend = "brute" if sc.padded_size <= 512 else "bvh"
+        backend = policy.resolve(args.backend, sc, differentiable=True)
         print("rendering target...")
         from .render import render_film
         target = jnp.asarray(np.asarray(render_film(
@@ -192,8 +192,12 @@ def main(argv=None):
                     backend=args.backend)
         dt = time.perf_counter() - t0
         rays = args.res * args.res * args.spp * args.depth
+        import jax
+        dev = jax.devices()[0]
         print(json.dumps({"rays_per_sec": rays / dt, "seconds": dt,
-                          "backend": args.backend}))
+                          "backend": policy.resolve(args.backend, sc),
+                          "device": {"platform": dev.platform,
+                                     "kind": dev.device_kind}}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Differentiable rendering: pixel gradients w.r.t. material parameters.
 
-The reference has no differentiable path at all; this is the subsystem the
-TPU build adds (BASELINE.json north star: d pixel / d (albedo, emission,
+The reference has no differentiable path at all; this is the subsystem this
+build adds (BASELINE.json north star: d pixel / d (albedo, emission,
 roughness) verified against finite differences).
 
 Estimator design — *detached sampling with reparameterized speculars*:
@@ -43,6 +43,7 @@ from typing import Dict, Optional
 import jax
 import jax.numpy as jnp
 
+from . import policy
 from . import rng as prng
 from .camera import Camera, get_rays
 from .ops import intersect as isect
@@ -67,11 +68,10 @@ def _make_intersect(scene: Scene, backend: str, accel):
     Geometry is fixed in this subsystem, and radiance never uses ``t``
     continuously (it enters only through hit positions, which affect
     radiance via *discrete* hit ids and normals — visibility-boundary
-    terms the estimator ignores by design, module docstring).  The
-    traversal backends are therefore wrapped with ``stop_gradient`` on
-    the ray inputs: no tangents enter their ``while_loop``/Pallas
-    internals, so ANY backend works under ``jax.grad`` and yields the
-    same material-gradient estimator as the brute path.
+    terms the estimator ignores by design, module docstring).  The BVH
+    traversals are therefore wrapped with ``stop_gradient`` on the ray
+    inputs: no tangents enter their ``while_loop`` internals, and they
+    yield the same material-gradient estimator as the brute path.
     """
     if backend == "brute":
         def intersect(o, d):
@@ -91,19 +91,6 @@ def _make_intersect(scene: Scene, backend: str, accel):
                         scene.v3, max_leaf=max_leaf,
                         stack_size=stack_size)
             return (t.reshape(o.shape[:-1]), tid.reshape(o.shape[:-1]))
-    elif backend == "cluster":
-        from .ops.pallas import cluster_kernel
-
-        interpret = jax.default_backend() == "cpu"
-
-        def intersect(o, d):
-            o = jax.lax.stop_gradient(o)
-            d = jax.lax.stop_gradient(d)
-            flat_o = o.reshape(-1, 3)
-            flat_d = d.reshape(-1, 3)
-            t, tid = cluster_kernel.intersect_clusters(
-                flat_o, flat_d, accel, interpret=interpret)
-            return (t.reshape(o.shape[:-1]), tid.reshape(o.shape[:-1]))
     else:
         raise ValueError(f"unknown diff backend {backend!r}")
     return intersect
@@ -112,18 +99,14 @@ def _make_intersect(scene: Scene, backend: str, accel):
 def make_accel(scene: Scene, backend: str):
     """Host-side acceleration-structure build for ``render_film_diff``.
 
-    Returns None for 'brute', a FlatBVH for 'bvh'/'bvh-gather', a
-    ClusterSet for 'cluster'.  Geometry never carries gradients, so the
-    structure is built once from the base scene and reused across
-    optimizer steps."""
+    Returns None for 'brute' and a FlatBVH for 'bvh'/'bvh-gather'.
+    Geometry never carries gradients, so the structure is built once from
+    the base scene and reused across optimizer steps."""
     if backend == "brute":
         return None
     if backend in ("bvh", "bvh-gather"):
         from .bvh import build_bvh
         return build_bvh(scene)
-    if backend == "cluster":
-        from .clusters import build_clusters
-        return build_clusters(scene)
     raise ValueError(f"unknown diff backend {backend!r}")
 
 
@@ -148,10 +131,11 @@ def render_film_diff(
     the hook for sample-axis data parallelism.
 
     ``backend``: 'brute' (dense, small scenes), 'bvh'/'bvh-gather' (flat
-    -BVH traversal), or 'cluster' (Pallas cluster kernel) for OBJ-scale
-    scenes; pass ``accel`` (from :func:`make_accel`) to amortize the host
-    build across optimizer steps.
+    -BVH traversal) for OBJ-scale scenes, or 'auto' (policy.py); pass
+    ``accel`` (from :func:`make_accel`) to amortize the host build across
+    optimizer steps.
     """
+    backend = policy.resolve(backend, scene, differentiable=True)
     if backend != "brute" and accel is None:
         accel = make_accel(scene, backend)
     intersect = _make_intersect(scene, backend, accel)
@@ -167,14 +151,8 @@ def render_film_diff(
     state, u1 = prng.rand01(state)
     state, u2 = prng.rand01(state)
     ray_o, ray_d = get_rays(camera, w[None], h[None], u1, u2)
-    # The cluster backend unrolls the bounce chain: a Pallas call inside
-    # a lax.scan body forces its triangle window through scoped vmem
-    # (16MB -> ~30k-tri ceiling); unrolled it binds directly, so the
-    # differentiable path scales to 100k+ triangles (round-4 verdict
-    # item 4).
     rad = trace_ops.trace_rays(table, intersect, ray_o, ray_d, depth, state,
-                               has_specular=scene.has_specular,
-                               unroll=backend == "cluster")
+                               has_specular=scene.has_specular)
     return jnp.mean(rad, axis=0)
 
 
@@ -192,6 +170,7 @@ def make_loss(
 
     ``sample_offset`` is exposed as an argument so the optimizer can rotate
     sample indices per step (fresh noise each step, SPSA-free)."""
+    backend = policy.resolve(backend, scene, differentiable=True)
     accel = make_accel(scene, backend)
 
     def loss(params: MaterialParams, sample_offset=0):

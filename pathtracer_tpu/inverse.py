@@ -13,8 +13,8 @@ step traces a fresh set of sample indices (the global index advances by
 ``samples`` per step) so successive steps see independent Monte-Carlo noise,
 which with Adam behaves like SGD on the true expected loss.
 
-Runs single-device here; the multi-chip variant is
-``parallel.make_sharded_train_step`` (same math, grads psum over ICI).
+Runs single-device here; the multi-device variant is
+``parallel.make_sharded_train_step`` (same math, grads psum-reduced).
 """
 
 from __future__ import annotations
@@ -142,11 +142,12 @@ def recover_materials(
 
     import optax
 
+    from . import materials as mat_mod
+    from . import policy
     from .diff import make_accel
     from .utils import checkpoint as ckpt
 
-    from . import materials as mat_mod
-
+    backend = policy.resolve(backend, scene, differentiable=True)
     accel = make_accel(scene, backend)
     if lr_end is not None:
         sched = optax.cosine_decay_schedule(lr, max(steps, 1),
@@ -220,20 +221,6 @@ def recover_materials(
     rough_spsa = "roughness" in optimize and scene.has_specular
     spsa_eps = 0.15  # logit-space perturbation (~0.04 at rough 0.5)
 
-    # Above ~30k triangles the step must dispatch EAGERLY: inside one big
-    # jitted program XLA keeps the cluster kernel's (P, 9) triangle window
-    # in HBM and stages it through SCOPED vmem (lane-padded 14x; the 16MB
-    # scoped limit is crossed at ~30k tris — 51.8MB at 105k), while eager
-    # dispatch compiles each pallas launch as its own program, whose VMEM
-    # operand is a regular (128MB-budget) allocation.  Measured at 105k:
-    # the eager value+grad step runs at 2.2 s, the jitted one does not
-    # compile.  Dispatch overhead is irrelevant at that scale.
-    jit_step = True
-    if backend == "cluster":
-        from .ops.pallas import cluster_kernel
-        jit_step = (scene.num_tris
-                    <= cluster_kernel.MAX_CLUSTER_TRIS_ON_DEVICE)
-
     def step(params, opt_state, k):
         def loss_fn(p):
             half = max(samples // 2, 1) if loss_kind == "paired" else samples
@@ -288,8 +275,7 @@ def recover_materials(
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
 
-    if jit_step:
-        step = jax.jit(step)
+    step = jax.jit(step)
 
     losses = []
     for k in range(start_step, steps):

@@ -1,10 +1,10 @@
 """Vector math primitives on batched arrays (L1 of the layer map).
 
-TPU-native replacement for the reference's scalar ``vec2``/``vec3``/``mat4``
+Batched replacement for the reference's scalar ``vec2``/``vec3``/``mat4``
 structs (``/root/reference/pathtracer/linalg.h:14-235``).  Instead of a
 struct-of-scalars vector class, everything here operates on arrays whose
 *trailing* dimension is the vector dimension (``(..., 3)``), so all ops are
-elementwise/broadcast ops that XLA maps straight onto the TPU VPU lanes.
+elementwise/broadcast ops that XLA fuses into device kernels.
 
 Constants mirror ``linalg.h:10-12``.
 """

@@ -1,7 +1,7 @@
 """Materials and BRDF sampling (L2), port of ``/root/reference/pathtracer/material.h``.
 
 Material model (material.h:27-39): ``type`` in {EMIT=1, DIFFUSE=2, SPECULAR=3},
-an albedo ``color``, an ``emit_color`` and a ``roughness``.  In the TPU build
+an albedo ``color``, an ``emit_color`` and a ``roughness``.  Here
 materials live in per-triangle SoA arrays (see ``scene.Scene``) and the
 samplers below are batched over rays.
 

@@ -1,2 +1,2 @@
 """Device compute ops: intersection, the bounce loop, wavefront pipeline,
-and Pallas TPU kernels."""
+and the Pallas GPU megakernel."""

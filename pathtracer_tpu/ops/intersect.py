@@ -2,14 +2,13 @@
 
 Two traversal strategies, selected by scene size:
 
-* ``intersect_brute`` — dense rays x triangles Möller–Trumbore.  On a vector
-  machine with 8x128 VPU lanes, testing EVERY triangle against every ray in
-  one fused broadcast expression is faster than divergent tree traversal up
-  to a few hundred triangles, and all the headline scenes (3-32 triangles)
-  are far below that.  This is the intersection core the Pallas megakernel
-  uses too.  There is no per-ray control flow at all: invalid candidates are
-  masked to FLOAT_INF and the nearest hit is a plain min-reduction over the
-  triangle axis.
+* ``intersect_brute`` — dense rays x triangles Möller–Trumbore.  Testing
+  EVERY triangle against every ray in one fused broadcast expression is
+  faster than divergent tree traversal up to a few hundred triangles, and
+  all the headline scenes (3-32 triangles) are far below that.  This is the
+  intersection arithmetic the Pallas megakernel uses too.  There is no
+  per-ray control flow at all: invalid candidates are masked to FLOAT_INF
+  and the nearest hit is a plain min-reduction over the triangle axis.
 
 * ``intersect_bvh`` — vectorized stack-based traversal over the flat BVH node
   arrays (same pointer-free data format as the reference GPU consumes,
@@ -182,20 +181,19 @@ def _masked_push(stack, sp, value, mask):
 
 def intersect_bvh_packet(ray_o, ray_d, flat, v1, v2, v3, max_leaf: int,
                          stack_size: int, packet_rays: int = 8192):
-    """Packet traversal of the flat BVH — the TPU-fast large-scene path.
+    """Packet traversal of the flat BVH.
 
     ``intersect_bvh`` gives every ray its own stack, which makes every node
-    fetch, stack access and leaf-vertex load a WIDE GATHER (per-ray indices)
-    — the slowest memory primitive on a TPU; measured ~9e4 rays/s at 10k
-    triangles.  This variant restructures the traversal so that a whole
-    PACKET of rays shares ONE scalar traversal stack (the classic coherent
-    packet traversal, re-derived for a vector machine):
+    fetch, stack access and leaf-vertex load a gather with per-ray indices.
+    This variant restructures the traversal so that a whole PACKET of rays
+    shares ONE scalar traversal stack (the classic coherent packet
+    traversal, re-derived for a vector machine):
 
       * the node index is a traced SCALAR -> node boxes / children / leaf
         ranges / triangle vertices are scalar ``dynamic_slice`` loads, never
         gathers;
       * the AABB slab test and Möller–Trumbore run densely over the packet
-        (pure VPU ops), with per-ray nearest-hit masking (the slab entry
+        (elementwise ops), with per-ray nearest-hit masking (the slab entry
         distance must beat the ray's current best t);
       * a subtree is descended iff ANY ray in the packet wants it (an
         ``any`` reduction — the vector analog of SIMT ballot);

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels: the fused path-tracing megakernel and helpers."""
+"""Pallas kernels: the fused path-tracing megakernel for NVIDIA GPUs."""

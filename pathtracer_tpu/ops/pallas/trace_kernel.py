@@ -1,29 +1,39 @@
-"""Fused Pallas TPU path-tracing megakernel.
+"""Fused path-tracing megakernel for NVIDIA GPUs (Pallas, Triton route).
 
-The TPU-native re-architecture of the reference's GLSL fragment-shader
-megakernel (shader.h:25-309).  One kernel instance owns a tile of
-``TILE_ROWS x 128`` pixels (the VPU register shape) and runs the ENTIRE
-pipeline — per-pixel hash RNG, camera ray generation, the spp loop, the
-bounce loop, dense Möller–Trumbore intersection against every triangle, and
-shading — entirely out of on-chip memory:
+The GPU re-design of the reference's GLSL fragment-shader megakernel
+(shader.h:25-309): one thread per (pixel, sample) path, a per-ray bounce
+loop, and the scene read as uniforms.  One program owns ``block``
+consecutive pixels of a film band (a ray or two per thread) and runs the
+whole pipeline without touching device memory in between:
 
-  * triangle geometry (v1, edge1, edge2) and the 12-column shading table
-    live in SMEM as scalars, read once per triangle per bounce and broadcast
-    against the whole ray tile (the analog of the reference's uniform
-    arrays, shader.h:76-79);
-  * all per-ray state (origins, directions, throughput, radiance, RNG) are
-    (TILE_ROWS, 128) float32/uint32 vector registers;
-  * the only HBM traffic is the final film-tile write: the kernel is
-    compute-bound by design, which is the speed-of-light regime for this
-    workload (intersection arithmetic on the VPU).
+  * per-(pixel, sample) hash RNG and camera-ray generation;
+  * the spp loop and the bounce loop, as real loops (``lax.fori_loop``), so
+    the program size does not grow with depth or triangle count;
+  * dense intersection against every triangle: a ``fori_loop`` over
+    triangles reads each triangle row as scalars (the same address in every
+    thread, served by the L1/constant caches — the analog of the
+    reference's uniform arrays, shader.h:76-79) and keeps only the nearest
+    ``(t, triangle id)`` per ray;
+  * shading constants gathered once per bounce by the winning triangle id
+    from the (T, 12) shade table of ops/trace.py;
+  * about 20 floats of per-ray state live in registers for all
+    ``depth x spp`` segments, and the film is written once per call as
+    three planes (Triton blocks are powers of two, so no (..., 3) tile).
 
-Scene-size limit: the dense loop is generated (unrolled) per triangle, so
-this kernel serves scenes up to a few hundred triangles — which covers every
-headline benchmark.  Bigger scenes take the XLA BVH path (ops/intersect).
+The arithmetic follows ops/trace.py and ops/intersect.py operation by
+operation (same RNG streams, sampling formulas and termination rules), so
+with ``loop="mt"`` (the default) the kernel matches ``backend="brute"`` bit
+for bit in interpret mode, and to rounding on the card.  ``loop="plucker"``
+computes the same hit set from precomputed per-triangle coefficients
+(fewer operations per ray-triangle pair), but its terms are products of
+scene coordinates that cancel: at Cornell-box scale (coordinates ~500) on
+an H100 it lets ~0.5 % of paths slip through shared triangle edges and
+darkens the film mean by ~2 % (PERF.md, Findings), so it is not the
+default.
 
-The math matches ops/trace.py exactly (same RNG streams, same sampling
-formulas, same termination rules), so the Pallas and XLA backends are
-bit-comparable in interpreter mode and statistically identical on hardware.
+Interpret mode (``interpret=True``) runs the same kernel on the CPU through
+the Pallas interpreter; it is what the CPU tests use, and is never chosen
+implicitly (see policy.py).
 """
 
 from __future__ import annotations
@@ -34,45 +44,34 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ... import materials as mat
+from ... import policy
 from ...camera import Camera
 from ...image import Film
 from ...linalg import EPS, FLOAT_INF, SHIFT_BIAS
 from ...scene import Scene
-from ...ops.trace import shade_table
+from ..trace import TABLE_COLS, shade_table
 
-LANES = 128
-DEFAULT_TILE_ROWS = 32          # rays per tile = TILE_ROWS * 128 (swept on
-                                # v5e: 32 rows > 64 > 128 by a few %)
-
-# Use the VPU's approximate reciprocal + one Newton step for the
-# Möller–Trumbore determinant inverse instead of a full-precision divide
-# (~23-bit accurate; set False to restore exact division and bit-parity
-# with the XLA path).
-FAST_RECIP = True
-
-
-def _recip(a):
-    if not FAST_RECIP:
-        return 1.0 / a
-    r = pl.reciprocal(a, approx=True)
-    return r * (2.0 - a * r)  # one Newton–Raphson refinement
-MAX_PALLAS_TRIS = 512           # beyond this, use the BVH path
-
-# Intersection loop for the compiled TPU path: "plucker" (default; ~15%
-# fewer VPU ops, accept boundaries differ from the XLA path by float
-# reassociation only) or "mt" (bit-comparable with ops/intersect.py; used
-# by the interpreter-mode parity tests).  Selected via the ``loop``
-# argument of render_film_pallas — a real argument, not an env knob.
-DEFAULT_LOOP = "plucker"
+MAX_PALLAS_TRIS = policy.BRUTE_MAX  # beyond this the policy takes a BVH path
+LOOPS = ("plucker", "mt")
+DEFAULT_LOOP = "mt"
+# Rays per program (a power of two) and warps per program: two rays per
+# thread was the fastest of the (block, warps) pairs swept on an H100
+# (PERF.md, Findings).
+DEFAULT_BLOCK = 256
+DEFAULT_NUM_WARPS = 4
+RAYS_PER_CALL = 1 << 24  # ray paths per dispatch (pixels x spp)
 
 # rng.py constants (must match rng.sample_seed / rng.rand01 bit for bit)
 _GOLDEN = np.uint32(0x9E3779B9)
-_SEEDMIX = np.uint32(0x85EBCA6B)
 _INV_U24 = np.float32(1.0 / 16777216.0)
+
+# Shade-table columns (ops/trace.py layout).
+_ALB, _EMI, _ROUGH, _NRM, _IS_EMIT, _IS_SPEC = 0, 3, 6, 7, 10, 11
 
 
 def _hash(s):
@@ -87,67 +86,41 @@ def _hash(s):
 
 
 def _rand01(s):
-    # top-24-bit uniform; see rng.rand01 (uint32->f32 unsupported in Mosaic)
+    """Top-24-bit uniform, the rng.rand01 contract: (s >> 8) -> int32 ->
+    float32, times 2^-24."""
     s = _hash(s)
     u = (s >> 8).astype(jnp.int32).astype(jnp.float32)
     return s, u * _INV_U24
 
 
-def _kernel(iparams_ref, cam_ref, tri_ref, tab_ref, film_ref, *,
-            tile_rows: int, n_tris: int, depth: int, spp: int,
-            has_specular: bool, spec_tries: int, loop: str = "mt"):
-    """One film tile.  SMEM inputs:
-    iparams: (5,) int32  [sample_idx0, seed_mix, width_log2, res_y, h0]
-             h0 = first pixel ROW of this launch (0 for a full-film
-             render).  A band launch [h0, h0 + band_h) produces rows
-             BIT-IDENTICAL to the same rows of a full-film launch: the
-             per-(pixel, sample) RNG streams depend only on the global
-             (w, h) — this is what gives the sharded driver true
-             pixel-tile partitioning (parallel/shard.py).
-    cam:     (16,) f32   [pos(3), right(3), up(3), dist*fwd(3), cell,
-                          vres_x/2, vres_y/2, pixel_offset]
-    tri:     loop="mt":      (T, 9) f32  [v1, e1, e2]
-             loop="plucker": (T, 27) f32 — see _triangle_params_plucker
-    tab:     (T, 8) f32  PACKED shade table: [color(3), rough, n(3), flags]
-             where color = emit_color for EMIT triangles else albedo (at
-             most one is live per triangle — checked by the launcher), and
-             flags = 2 for EMIT / 1 for SPECULAR / 0 for DIFFUSE.  Packing
-             cuts the per-triangle winner-select chain from 13 to 9 vector
-             selects; the per-ray unpack costs ~8 ops per bounce total.
-    out film: (3, tile_rows, 128) f32 radiance SUM over the spp samples.
+def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
+            block: int, width: int, n_tris: int, depth: int,
+            has_specular: bool, spec_tries: int, loop: str):
+    """One block of ``block`` pixels of a band.
 
-    ``loop`` selects the intersection formulation:
-      * "mt" — textbook Möller–Trumbore (triangle.h:25-44), arithmetic
-        matching ops/intersect.py for bit-comparability with the XLA path.
-      * "plucker" — algebraically identical hit set computed from the ray's
-        Plücker moment c = o×d and precomputed per-triangle coefficient
-        vectors (see _triangle_params_plucker): removes the per-(ray,tri)
-        h = d×e2 cross and s = o-v1 subtraction (~8 VPU ops of ~50), and
-        bounce 0 (shared origin = camera) collapses further since c is
-        linear in d there.  Accept boundaries differ from "mt" by float
-        reassociation only (≲1 ulp), statistically identical renders.
+    ip_ref:  (5,) int32 [sample0, seed_mix, res_y, h0, spp].  ``h0`` is the
+             band's first film row: rows of a band launch are bit-identical
+             to the same rows of a full-film launch, because each
+             (pixel, sample) RNG stream depends only on the global (w, h).
+    cam_ref: (16,) f32 [pos(3), right(3), up(3), distance*forward(3), cell,
+             v_res_x/2, v_res_y/2, pixel_offset].
+    tri_ref: loop="mt": (T, 9) [v1, e1, e2]; loop="plucker": (T, 27), see
+             _triangle_params_plucker.
+    tab_ref: (T, 12) shade table (ops/trace.py).
+    out_*:   (block,) radiance SUM over the spp samples, one plane per
+             channel.
     """
-    s0 = iparams_ref[0]
-    seed_mix = iparams_ref[1].astype(jnp.uint32)
-    width_log2 = iparams_ref[2]   # image width as a power of two
-    res_y = iparams_ref[3]
-    h0 = iparams_ref[4]           # first pixel row of this launch
+    s0 = ip_ref[0]
+    seed_mix = ip_ref[1].astype(jnp.uint32)
+    res_y = ip_ref[2]
+    h0 = ip_ref[3]
+    spp = ip_ref[4]
 
-    tile = pl.program_id(0)
-    pix = (tile * (tile_rows * LANES)
-           + jax.lax.broadcasted_iota(jnp.int32, (tile_rows, LANES), 0) * LANES
-           + jax.lax.broadcasted_iota(jnp.int32, (tile_rows, LANES), 1))
-    # w = pix % width, h = pix // width — via shift/mask (vector integer
-    # division lowers catastrophically in Mosaic; the launcher guarantees
-    # power-of-two widths)
-    w = pix & ((1 << width_log2) - 1)
-    h = (pix >> width_log2) + h0
-
-    # Per-pixel base seed (shader.h:286 discipline; see rng.sample_seed).
-    pix_seed = (h.astype(jnp.uint32)
-                + w.astype(jnp.uint32) * res_y.astype(jnp.uint32)
-                + np.uint32(1))
-
+    pix = pl.program_id(0) * block + lax.iota(jnp.int32, block)
+    w = pix % width
+    h = pix // width + h0
+    pix_seed = (h.astype(jnp.uint32) + w.astype(jnp.uint32)
+                * res_y.astype(jnp.uint32) + np.uint32(1))
     wf = w.astype(jnp.float32)
     hf = h.astype(jnp.float32)
 
@@ -155,259 +128,219 @@ def _kernel(iparams_ref, cam_ref, tri_ref, tab_ref, film_ref, *,
     rx, ry, rz = cam_ref[3], cam_ref[4], cam_ref[5]
     ux, uy, uz = cam_ref[6], cam_ref[7], cam_ref[8]
     fx, fy, fz = cam_ref[9], cam_ref[10], cam_ref[11]
-    cell, hvx, hvy = cam_ref[12], cam_ref[13], cam_ref[14]
-    pix_off = cam_ref[15]
+    cell, hvx, hvy, pix_off = cam_ref[12], cam_ref[13], cam_ref[14], \
+        cam_ref[15]
 
-    # NOTE: the bounce loop is UNROLLED in Python (depth is static and
-    # small).  A lax.fori_loop here would carry ~100 vector registers
-    # (including i1 masks) through an scf.for, which Mosaic fails to
-    # legalize; unrolling keeps only the 3 spp-accumulators as loop state.
-    def intersect_mt(ox, oy, oz, dx, dy, dz, bounce):
-        """Textbook Möller–Trumbore over all triangles, fused winner-select.
-        `u <= 1` is dropped: it is implied by `v >= 0 & u + v <= 1`."""
-        del bounce
-        best_t = jnp.full((tile_rows, LANES), FLOAT_INF, jnp.float32)
-        feats = [jnp.zeros((tile_rows, LANES), jnp.float32)
-                 for _ in range(8)]
-        for t in range(n_tris):
-            v1x, v1y, v1z = tri_ref[t, 0], tri_ref[t, 1], tri_ref[t, 2]
-            e1x, e1y, e1z = tri_ref[t, 3], tri_ref[t, 4], tri_ref[t, 5]
-            e2x, e2y, e2z = tri_ref[t, 6], tri_ref[t, 7], tri_ref[t, 8]
+    zeros = jnp.zeros((block,), jnp.float32)
+    ones = jnp.ones((block,), jnp.float32)
 
-            hx = dy * e2z - dz * e2y
-            hy = dz * e2x - dx * e2z
-            hz = dx * e2y - dy * e2x
-            a = e1x * hx + e1y * hy + e1z * hz
-            f = _recip(a)
-            sx, sy, sz = ox - v1x, oy - v1y, oz - v1z
-            u = f * (sx * hx + sy * hy + sz * hz)
-            qx = sy * e1z - sz * e1y
-            qy = sz * e1x - sx * e1z
-            qz = sx * e1y - sy * e1x
-            v = f * (dx * qx + dy * qy + dz * qz)
-            tt = f * (e2x * qx + e2y * qy + e2z * qz)
-            ok = ((jnp.abs(a) >= EPS) & (u >= 0.0)
-                  & (v >= 0.0) & (u + v <= 1.0) & (tt > 0.0)
-                  & (tt < best_t))
-            best_t = jnp.where(ok, tt, best_t)
-            for c in range(8):
-                feats[c] = jnp.where(ok, tab_ref[t, c], feats[c])
-        return [best_t] + feats
-
-    def intersect_plucker(ox, oy, oz, dx, dy, dz, bounce):
-        """Plücker-coefficient intersection (same hit set as MT up to float
-        reassociation).  With the ray moment c = o×d computed once per
-        bounce, every per-triangle quantity is a dot against precomputed
-        constants — no per-(ray,tri) cross products or origin subtraction:
-
-            a   = Na·d                         (Na = -e1×e2)
-            u·a = e2·c + kp·d                  (kp = -(e2×v1))
-            v·a = me1·c + kq·d                 (me1 = -e1, kq = -(v1×e1))
-            t·a = N·o + nv                     (nv = -N·v1)
-
-        Bounce 0 collapses further: o = camera position for every ray, so
-        c is linear in d and u·a = pc·d, v·a = qc·d, t·a = r0 with pc, qc,
-        r0 precomputed on the host against the camera origin."""
-        primary = bounce == 0
-        if not primary:
+    def nearest(ox, oy, oz, dx, dy, dz, primary):
+        """(best_t, best_id) over all triangles; best_id = -1 on miss."""
+        if loop == "plucker" and not primary:
             cx = oy * dz - oz * dy
             cy = oz * dx - ox * dz
             cz = ox * dy - oy * dx
-        best_t = jnp.full((tile_rows, LANES), FLOAT_INF, jnp.float32)
-        feats = [jnp.zeros((tile_rows, LANES), jnp.float32)
-                 for _ in range(8)]
-        for t in range(n_tris):
-            a = (tri_ref[t, 0] * dx + tri_ref[t, 1] * dy
-                 + tri_ref[t, 2] * dz)
-            f = _recip(a)
-            if primary:
-                p = (tri_ref[t, 19] * dx + tri_ref[t, 20] * dy
-                     + tri_ref[t, 21] * dz)
-                q = (tri_ref[t, 22] * dx + tri_ref[t, 23] * dy
-                     + tri_ref[t, 24] * dz)
-                tt = f * tri_ref[t, 25]
+
+        def tri_body(t, carry):
+            best_t, best_i = carry
+            if loop == "mt":
+                # ops/intersect.intersect_brute, term for term.  `u <= 1`
+                # is implied by `v >= 0 & u + v <= 1` and dropped.
+                v1x, v1y, v1z = tri_ref[t, 0], tri_ref[t, 1], tri_ref[t, 2]
+                e1x, e1y, e1z = tri_ref[t, 3], tri_ref[t, 4], tri_ref[t, 5]
+                e2x, e2y, e2z = tri_ref[t, 6], tri_ref[t, 7], tri_ref[t, 8]
+                hx = dy * e2z - dz * e2y
+                hy = dz * e2x - dx * e2z
+                hz = dx * e2y - dy * e2x
+                a = e1x * hx + e1y * hy + e1z * hz
+                f = 1.0 / a
+                sx, sy, sz = ox - v1x, oy - v1y, oz - v1z
+                u = f * (sx * hx + sy * hy + sz * hz)
+                qx = sy * e1z - sz * e1y
+                qy = sz * e1x - sx * e1z
+                qz = sx * e1y - sy * e1x
+                v = f * (dx * qx + dy * qy + dz * qz)
+                tt = f * (e2x * qx + e2y * qy + e2z * qz)
             else:
-                p = (tri_ref[t, 10] * cx + tri_ref[t, 11] * cy
-                     + tri_ref[t, 12] * cz
-                     + tri_ref[t, 7] * dx + tri_ref[t, 8] * dy
-                     + tri_ref[t, 9] * dz)
-                q = (tri_ref[t, 16] * cx + tri_ref[t, 17] * cy
-                     + tri_ref[t, 18] * cz
-                     + tri_ref[t, 13] * dx + tri_ref[t, 14] * dy
-                     + tri_ref[t, 15] * dz)
-                r = (tri_ref[t, 3] * ox + tri_ref[t, 4] * oy
-                     + tri_ref[t, 5] * oz + tri_ref[t, 6])
+                # Plücker form: with c = o x d, every per-triangle term is a
+                # dot against precomputed constants (see
+                # _triangle_params_plucker); at bounce 0 the origin is the
+                # camera for every ray, so c is linear in d and the
+                # coefficients fold further.
+                a = (tri_ref[t, 0] * dx + tri_ref[t, 1] * dy
+                     + tri_ref[t, 2] * dz)
+                f = 1.0 / a
+                if primary:
+                    p = (tri_ref[t, 19] * dx + tri_ref[t, 20] * dy
+                         + tri_ref[t, 21] * dz)
+                    q = (tri_ref[t, 22] * dx + tri_ref[t, 23] * dy
+                         + tri_ref[t, 24] * dz)
+                    r = tri_ref[t, 25]
+                else:
+                    p = (tri_ref[t, 10] * cx + tri_ref[t, 11] * cy
+                         + tri_ref[t, 12] * cz + tri_ref[t, 7] * dx
+                         + tri_ref[t, 8] * dy + tri_ref[t, 9] * dz)
+                    q = (tri_ref[t, 16] * cx + tri_ref[t, 17] * cy
+                         + tri_ref[t, 18] * cz + tri_ref[t, 13] * dx
+                         + tri_ref[t, 14] * dy + tri_ref[t, 15] * dz)
+                    r = (tri_ref[t, 3] * ox + tri_ref[t, 4] * oy
+                         + tri_ref[t, 5] * oz + tri_ref[t, 6])
+                u = f * p
+                v = f * q
                 tt = f * r
-            u = f * p
-            v = f * q
-            ok = ((jnp.abs(a) >= EPS) & (u >= 0.0)
-                  & (v >= 0.0) & (u + v <= 1.0) & (tt > 0.0)
-                  & (tt < best_t))
-            best_t = jnp.where(ok, tt, best_t)
-            for c in range(8):
-                feats[c] = jnp.where(ok, tab_ref[t, c], feats[c])
-        return [best_t] + feats
+            ok = ((jnp.abs(a) >= EPS) & (u >= 0.0) & (v >= 0.0)
+                  & (u + v <= 1.0) & (tt > 0.0) & (tt < best_t))
+            return (jnp.where(ok, tt, best_t),
+                    jnp.where(ok, jnp.full((block,), t, jnp.int32), best_i))
 
-    intersect = intersect_plucker if loop == "plucker" else intersect_mt
+        return lax.fori_loop(
+            0, n_tris, tri_body,
+            (jnp.full((block,), FLOAT_INF, jnp.float32),
+             jnp.full((block,), -1, jnp.int32)))
 
-    def one_bounce(carry, bounce):
-        (ox, oy, oz, dx, dy, dz, thr_r, thr_g, thr_b,
-         rad_r, rad_g, rad_b, alive, seed) = carry
+    def one_bounce(carry, primary):
+        (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive,
+         seed) = carry
+        best_t, best_i = nearest(ox, oy, oz, dx, dy, dz, primary)
+        hit = (best_i >= 0) & alive
+        row = jnp.maximum(best_i, 0)
 
-        # ---- dense intersection over all triangles, with the shading
-        # constants of the current-best triangle selected in the same pass
-        # (the "gather" is 9 predicated selects per candidate, fused right
-        # after the hit test — no second loop, no argmin) -----------------
-        (best_t, col_r, col_g, col_b, rough, nx, ny, nz, flags) = intersect(
-            ox, oy, oz, dx, dy, dz, bounce)
+        def col(c):
+            # per-ray gather of one shade-table column; misses read row 0
+            # and are masked by `hit` below (ops/trace.gather_features)
+            return jnp.where(hit, tab_ref[row, c], 0.0)
 
-        is_emit = flags > 1.5
-        emitf = is_emit.astype(jnp.float32)
-        albf = 1.0 - emitf
-        alb_r, alb_g, alb_b = col_r * albf, col_g * albf, col_b * albf
-        em_r, em_g, em_b = col_r * emitf, col_g * emitf, col_b * emitf
+        alb = [col(_ALB + i) for i in range(3)]
+        emi = [col(_EMI + i) for i in range(3)]
+        rough = col(_ROUGH)
+        ngx, ngy, ngz = (col(_NRM + i) for i in range(3))
+        is_emit = col(_IS_EMIT) > 0.5
+        is_spec = col(_IS_SPEC) > 0.5
 
-        hit = (best_t < FLOAT_INF) & alive
-        hitf = hit.astype(jnp.float32)
-        rad_r = rad_r + hitf * thr_r * em_r
-        rad_g = rad_g + hitf * thr_g * em_g
-        rad_b = rad_b + hitf * thr_b * em_b
-
+        rr = rr + jnp.where(hit, tr * emi[0], 0.0)
+        rg = rg + jnp.where(hit, tg * emi[1], 0.0)
+        rb = rb + jnp.where(hit, tb * emi[2], 0.0)
         cont = hit & ~is_emit
-        contf = cont.astype(jnp.float32)
 
-        # double-sided flip toward the ray (triangle.h:48)
-        ndotd = nx * dx + ny * dy + nz * dz
-        flip = jnp.where(ndotd < 0.0, 1.0, -1.0)
-        nx, ny, nz = nx * flip, ny * flip, nz * flip
+        # double-sided normal, flipped toward the incoming ray (triangle.h:48)
+        front = (ngx * dx + ngy * dy + ngz * dz) < 0.0
+        nx = jnp.where(front, ngx, -ngx)
+        ny = jnp.where(front, ngy, -ngy)
+        nz = jnp.where(front, ngz, -ngz)
 
-        # ---- bounce direction (materials.py formulas) -----------------
+        # diffuse: materials.hemisphere_sample
         seed, u1 = _rand01(seed)
         seed, u2 = _rand01(seed)
         xx = 2.0 * u1 - 1.0
         ct = jnp.sqrt(jnp.maximum(1.0 - xx * xx, 0.0))
         phi = np.float32(2.0 * np.pi) * u2
-        sdx = ct * jnp.cos(phi)
-        sdy = ct * jnp.sin(phi)
-        sdz = -xx
+        sdx, sdy, sdz = ct * jnp.cos(phi), ct * jnp.sin(phi), -xx
         sflip = jnp.where(sdx * nx + sdy * ny + sdz * nz < 0.0, -1.0, 1.0)
         ndx, ndy, ndz = sdx * sflip, sdy * sflip, sdz * sflip
 
         if has_specular:
-            # mirror + first-acceptable-of-K cube jitters
+            # materials.specular_sample: mirror plus the FIRST acceptable
+            # of spec_tries cube jitters, else the pure mirror
             ddn = 2.0 * (dx * nx + dy * ny + dz * nz)
-            mx, my, mz = dx - ddn * nx, dy - ddn * ny, dz - ddn * nz
-            cands = []
-            for _ in range(spec_tries):
+            mx, my, mz = dx - nx * ddn, dy - ny * ddn, dz - nz * ddn
+
+            def try_body(_, st):
+                seed, cx, cy, cz, found = st
                 seed, c1 = _rand01(seed)
                 seed, c2 = _rand01(seed)
                 seed, c3 = _rand01(seed)
-                cands.append((c1, c2, c3))
-            cx, cy, cz = mx, my, mz  # fallback: pure mirror
-            for c1, c2, c3 in reversed(cands):
                 jx = mx + (c1 - 0.5) * rough
                 jy = my + (c2 - 0.5) * rough
                 jz = mz + (c3 - 0.5) * rough
-                ok = (jx * nx + jy * ny + jz * nz) >= 0.0
-                cx = jnp.where(ok, jx, cx)
-                cy = jnp.where(ok, jy, cy)
-                cz = jnp.where(ok, jz, cz)
-            inv = jax.lax.rsqrt(cx * cx + cy * cy + cz * cz)
-            sx_, sy_, sz_ = cx * inv, cy * inv, cz * inv
-            spec = (flags > 0.5) & ~is_emit
-            ndx = jnp.where(spec, sx_, ndx)
-            ndy = jnp.where(spec, sy_, ndy)
-            ndz = jnp.where(spec, sz_, ndz)
+                take = ((jx * nx + jy * ny + jz * nz) >= 0.0) & ~found
+                return (seed, jnp.where(take, jx, cx),
+                        jnp.where(take, jy, cy), jnp.where(take, jz, cz),
+                        found | take)
+
+            seed, cx, cy, cz, _ = lax.fori_loop(
+                0, spec_tries, try_body,
+                (seed, mx, my, mz, jnp.zeros((block,), jnp.bool_)))
+            norm = jnp.sqrt(cx * cx + cy * cy + cz * cz)
+            ndx = jnp.where(is_spec, cx / norm, ndx)
+            ndy = jnp.where(is_spec, cy / norm, ndy)
+            ndz = jnp.where(is_spec, cz / norm, ndz)
 
         cos = nx * ndx + ny * ndy + nz * ndz
-        w2c = 2.0 * cos
-        thr_r = thr_r * jnp.where(cont, w2c * alb_r, 1.0)
-        thr_g = thr_g * jnp.where(cont, w2c * alb_g, 1.0)
-        thr_b = thr_b * jnp.where(cont, w2c * alb_b, 1.0)
+        tr = tr * jnp.where(cont, 2.0 * alb[0] * cos, 1.0)
+        tg = tg * jnp.where(cont, 2.0 * alb[1] * cos, 1.0)
+        tb = tb * jnp.where(cont, 2.0 * alb[2] * cos, 1.0)
 
-        hx_ = ox + dx * best_t
-        hy_ = oy + dy * best_t
-        hz_ = oz + dz * best_t
         bias = np.float32(SHIFT_BIAS)
-        ox = jnp.where(cont, hx_ + nx * bias, ox)
-        oy = jnp.where(cont, hy_ + ny * bias, oy)
-        oz = jnp.where(cont, hz_ + nz * bias, oz)
+        ox = jnp.where(cont, (ox + dx * best_t) + nx * bias, ox)
+        oy = jnp.where(cont, (oy + dy * best_t) + ny * bias, oy)
+        oz = jnp.where(cont, (oz + dz * best_t) + nz * bias, oz)
         dx = jnp.where(cont, ndx, dx)
         dy = jnp.where(cont, ndy, dy)
         dz = jnp.where(cont, ndz, dz)
-        del contf
-        return (ox, oy, oz, dx, dy, dz, thr_r, thr_g, thr_b,
-                rad_r, rad_g, rad_b, cont, seed)
+        return (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, cont, seed)
 
     def one_sample(s, acc):
-        acc_r, acc_g, acc_b = acc
         sidx = (s0 + s).astype(jnp.uint32)
         seed = _hash(pix_seed ^ (sidx * _GOLDEN))
         seed = _hash(seed ^ seed_mix)
-
         seed, u1 = _rand01(seed)
         seed, u2 = _rand01(seed)
+        # camera.get_rays
         x = (wf + pix_off + u1) * cell - hvx
         y = (hf + pix_off + u2) * cell - hvy
         dx = x * rx + y * ux + fx
         dy = x * ry + y * uy + fy
         dz = x * rz + y * uz + fz
-        inv = jax.lax.rsqrt(dx * dx + dy * dy + dz * dz)
-        dx, dy, dz = dx * inv, dy * inv, dz * inv
+        norm = jnp.sqrt(dx * dx + dy * dy + dz * dz)
+        carry = (zeros + px, zeros + py, zeros + pz,
+                 dx / norm, dy / norm, dz / norm, ones, ones, ones,
+                 zeros, zeros, zeros, jnp.ones((block,), jnp.bool_), seed)
+        b0 = 0
+        if loop == "plucker" and depth > 0:
+            carry = one_bounce(carry, primary=True)
+            b0 = 1
+        carry = lax.fori_loop(
+            b0, depth, lambda _, c: one_bounce(c, primary=False), carry)
+        return acc[0] + carry[9], acc[1] + carry[10], acc[2] + carry[11]
 
-        zeros = jnp.zeros((tile_rows, LANES), jnp.float32)
-        ones = jnp.ones((tile_rows, LANES), jnp.float32)
-        carry = (zeros + px, zeros + py, zeros + pz, dx, dy, dz,
-                 ones, ones, ones, zeros, zeros, zeros,
-                 jnp.ones((tile_rows, LANES), bool), seed)
-        for b in range(depth):
-            carry = one_bounce(carry, b)
-        rad_r, rad_g, rad_b = carry[9], carry[10], carry[11]
-        return acc_r + rad_r, acc_g + rad_g, acc_b + rad_b
-
-    zeros = jnp.zeros((tile_rows, LANES), jnp.float32)
-    acc_r, acc_g, acc_b = jax.lax.fori_loop(
-        0, spp, one_sample, (zeros, zeros, zeros))
-    film_ref[0] = acc_r
-    film_ref[1] = acc_g
-    film_ref[2] = acc_b
+    acc_r, acc_g, acc_b = lax.fori_loop(0, spp, one_sample,
+                                         (zeros, zeros, zeros))
+    out_r[...] = acc_r
+    out_g[...] = acc_g
+    out_b[...] = acc_b
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("tile_rows", "n_tris", "depth", "spp", "has_specular",
-                     "width", "height", "interpret", "loop"),
+    static_argnames=("width", "band_h", "n_tris", "depth", "has_specular",
+                     "loop", "block", "num_warps", "interpret"),
 )
-def _launch(iparams, cam_params, tri_params, table, *, tile_rows, n_tris,
-            depth, spp, has_specular, width, height, interpret=False,
-            loop="mt"):
-    n_pix = width * height
-    rays_per_tile = tile_rows * LANES
-    assert n_pix % rays_per_tile == 0, (n_pix, rays_per_tile)
-    n_tiles = n_pix // rays_per_tile
-
+def _launch(iparams, cam_params, tri_params, table, *, width, band_h,
+            n_tris, depth, has_specular, loop, block, num_warps, interpret):
+    """Radiance SUM of a ``band_h x width`` band as (band_h, width, 3)."""
+    n_pix = width * band_h
+    n_blocks = -(-n_pix // block)
     kern = functools.partial(
-        _kernel, tile_rows=tile_rows, n_tris=n_tris, depth=depth, spp=spp,
+        _kernel, block=block, width=width, n_tris=n_tris, depth=depth,
         has_specular=has_specular, spec_tries=mat.SPECULAR_TRIES, loop=loop)
-
-    out = pl.pallas_call(
+    plane = jax.ShapeDtypeStruct((n_blocks * block,), jnp.float32)
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
+    out_spec = pl.BlockSpec((block,), lambda i: (i,))
+    planes = pl.pallas_call(
         kern,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (3, tile_rows, LANES), lambda i: (0, i, 0),
-            memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((3, n_pix // LANES, LANES),
-                                       jnp.float32),
+        grid=(n_blocks,),
+        in_specs=[any_spec] * 4,
+        out_specs=[out_spec] * 3,
+        out_shape=[plane] * 3,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
         interpret=interpret,
+        name="pathtrace_megakernel",
     )(iparams, cam_params, tri_params, table)
-    # (3, H*W/128, 128) -> (H, W, 3)
-    return out.reshape(3, height, width).transpose(1, 2, 0)
+    # pixels past n_pix (the ragged last block) are traced and dropped
+    film = jnp.stack([p[:n_pix] for p in planes], axis=-1)
+    return film.reshape(band_h, width, 3)
 
 
 def _camera_params(cam: Camera) -> np.ndarray:
@@ -415,7 +348,7 @@ def _camera_params(cam: Camera) -> np.ndarray:
     p[0:3] = np.asarray(cam.pos)
     p[3:6] = np.asarray(cam.right)
     p[6:9] = np.asarray(cam.up)
-    p[9:12] = np.asarray(cam.forward) * float(cam.distance)
+    p[9:12] = np.asarray(cam.forward) * np.float32(cam.distance)
     p[12] = float(cam.cell_size)
     p[13] = float(cam.v_res[0]) * 0.5
     p[14] = float(cam.v_res[1]) * 0.5
@@ -424,8 +357,8 @@ def _camera_params(cam: Camera) -> np.ndarray:
 
 
 def _triangle_params(scene: Scene) -> jnp.ndarray:
-    """(T, 9) = [v1, edge1, edge2] per triangle — only the REAL triangles;
-    the dense loop is generated per triangle so padding is just dropped."""
+    """(T, 9) = [v1, edge1, edge2] for the REAL triangles (the loop runs
+    over num_tris, so padding rows are dropped)."""
     n = scene.num_tris
     v1 = scene.v1[:n]
     return jnp.concatenate(
@@ -433,8 +366,7 @@ def _triangle_params(scene: Scene) -> jnp.ndarray:
 
 
 def _triangle_params_plucker(scene: Scene, cam_pos) -> jnp.ndarray:
-    """(T, 27) Plücker coefficient rows for intersect_plucker (host-side,
-    float64 precompute).  Column layout:
+    """(T, 27) Plücker coefficient rows (host-side, float64 precompute).
 
       0:3   Na  = -(e1 x e2)          a   = Na . d
       3:6   N   =  e1 x e2            t*a = N . o + nv
@@ -448,7 +380,6 @@ def _triangle_params_plucker(scene: Scene, cam_pos) -> jnp.ndarray:
       25    r0  = N . cam_pos + nv    t*a at bounce 0
       26    pad
     """
-    n = scene.num_tris
     hv1, hv2, hv3 = scene.host_verts()
     v1 = hv1.astype(np.float64)
     e1 = hv2.astype(np.float64) - v1
@@ -469,38 +400,47 @@ def _triangle_params_plucker(scene: Scene, cam_pos) -> jnp.ndarray:
         axis=-1).astype(np.float32))
 
 
-def _packed_table(scene: Scene) -> jnp.ndarray:
-    """(T, 8) packed shade table: [color, rough, normal, flags] (see
-    _kernel docstring).  Requires non-EMIT triangles to have zero emission
-    — true for every reference scene and the OBJ illum mapping; the
-    reference formally adds `emission` for all material types
-    (render.h:59), so a hand-built diffuse+emissive material must use the
-    XLA backend (checked by the launcher)."""
-    import numpy as np
+def _seed_mix(seed: int) -> int:
+    """rng.sample_seed's mix constant as an int32 bit pattern (the kernel
+    reinterprets it as uint32)."""
+    mix = (int(seed) * 0x85EBCA6B) & 0xFFFFFFFF
+    return mix - (1 << 32) if mix >= (1 << 31) else mix
 
-    from ... import materials as mat
 
-    n = scene.num_tris
-    full = shade_table(scene)[:n]
-    mtype, _, emit, _ = scene.host_materials()
-    if np.any((mtype != mat.EMIT) & (np.abs(emit).sum(-1) > 0)):
-        raise ValueError(
-            "scene has a non-EMIT material with nonzero emission; the "
-            "packed Pallas kernel cannot represent it — use backend='brute'")
-    color = jnp.where((scene.mat_type[:n] == mat.EMIT)[:, None],
-                      scene.emit[:n], scene.albedo[:n])
-    flags = jnp.where(scene.mat_type[:n] == mat.EMIT, 2.0,
-                      jnp.where(scene.mat_type[:n] == mat.SPECULAR, 1.0,
-                                0.0))
-    return jnp.concatenate(
-        [color, full[:, 6:7], full[:, 7:10], flags[:, None]], axis=-1)
+class PackedScene:
+    """Host-side packing of (camera, scene) for the kernel, done once per
+    render and reused by every launch."""
+
+    def __init__(self, camera: Camera, scene: Scene, loop: str):
+        if loop not in LOOPS:
+            raise ValueError(f"unknown loop {loop!r} (use one of {LOOPS})")
+        if scene.num_tris > MAX_PALLAS_TRIS:
+            raise ValueError(
+                f"the megakernel supports <= {MAX_PALLAS_TRIS} triangles "
+                f"(got {scene.num_tris}); use a BVH backend")
+        self.loop = loop
+        self.n_tris = scene.num_tris
+        self.has_specular = scene.has_specular
+        self.cam = jnp.asarray(_camera_params(camera))
+        self.tri = (_triangle_params_plucker(scene, camera.pos)
+                    if loop == "plucker" else _triangle_params(scene))
+        self.table = shade_table(scene)[: scene.num_tris]
+        assert self.table.shape[1] == TABLE_COLS
+
+    def launch(self, iparams, *, width, band_h, depth, interpret,
+               block=DEFAULT_BLOCK, num_warps=DEFAULT_NUM_WARPS):
+        return _launch(iparams, self.cam, self.tri, self.table,
+                       width=width, band_h=band_h, n_tris=self.n_tris,
+                       depth=depth, has_specular=self.has_specular,
+                       loop=self.loop, block=block, num_warps=num_warps,
+                       interpret=interpret)
 
 
 def render_sum_pallas(camera: Camera, scene: Scene, sample0: int,
                       samples: int, depth: int = 5, *, seed: int = 1,
-                      tile_rows: int = DEFAULT_TILE_ROWS,
+                      interpret: bool, block: int = DEFAULT_BLOCK,
+                      num_warps: int = DEFAULT_NUM_WARPS,
                       spp_per_call: Optional[int] = None,
-                      interpret: bool = False,
                       loop: Optional[str] = None,
                       verbose: bool = False) -> jnp.ndarray:
     """Radiance SUM over samples [sample0, sample0+samples) as an
@@ -508,51 +448,23 @@ def render_sum_pallas(camera: Camera, scene: Scene, sample0: int,
     independent RNG stream, sample windows compose exactly: summing two
     adjacent windows equals one combined render — the property the
     block-boundary checkpointing in render.py relies on."""
-    if loop is None:
-        loop = DEFAULT_LOOP
-    if scene.num_tris > MAX_PALLAS_TRIS:
-        raise ValueError(
-            f"pallas megakernel supports <= {MAX_PALLAS_TRIS} triangles "
-            f"(got {scene.num_tris}); use the BVH backend")
+    policy.check_kernel_platform(interpret)
+    if block <= 0 or block & (block - 1):
+        raise ValueError(f"block must be a power of two (got {block})")
+    packed = PackedScene(camera, scene, loop or DEFAULT_LOOP)
     width, height = camera.res
-    if width & (width - 1):
-        raise ValueError(
-            f"pallas backend requires a power-of-two image width "
-            f"(got {width}); use the XLA backend for other sizes")
-    width_log2 = width.bit_length() - 1
-    n_pix = width * height
-    while n_pix % (tile_rows * LANES):
-        tile_rows //= 2
-        if tile_rows == 0:
-            raise ValueError(f"image size {width}x{height} not divisible "
-                             f"into {LANES}-lane tiles")
-
     if spp_per_call is None:
-        # target ~2^24 ray segments per dispatch
-        spp_per_call = max(1, min(samples, (1 << 24) // n_pix))
-
-    cam_params = jnp.asarray(_camera_params(camera))
-    if loop == "plucker":
-        tri_params = _triangle_params_plucker(scene, camera.pos)
-    else:
-        tri_params = _triangle_params(scene)
-    table = _packed_table(scene)
-    # Same mix constant as rng.sample_seed, stored as the int32 bit pattern
-    # (the kernel reinterprets it back to uint32).
-    mix = (int(seed) * 0x85EBCA6B) & 0xFFFFFFFF
-    seed_mix = mix - (1 << 32) if mix >= (1 << 31) else mix
+        spp_per_call = max(1, min(samples, RAYS_PER_CALL // (width * height)))
+    mix = _seed_mix(seed)
 
     film = jnp.zeros((height, width, 3), jnp.float32)
     s = 0
     while s < samples:
         spp = min(spp_per_call, samples - s)
-        iparams = jnp.array([sample0 + s, seed_mix, width_log2, height, 0],
-                            jnp.int32)
-        film = film + _launch(
-            iparams, cam_params, tri_params, table,
-            tile_rows=tile_rows, n_tris=scene.num_tris, depth=depth,
-            spp=spp, has_specular=scene.has_specular,
-            width=width, height=height, interpret=interpret, loop=loop)
+        iparams = jnp.array([sample0 + s, mix, height, 0, spp], jnp.int32)
+        film = film + packed.launch(
+            iparams, width=width, band_h=height, depth=depth,
+            interpret=interpret, block=block, num_warps=num_warps)
         s += spp
         if verbose:
             print(f"\rRendered: {sample0 + s} spp.", end="", flush=True)
@@ -562,19 +474,20 @@ def render_sum_pallas(camera: Camera, scene: Scene, sample0: int,
 
 
 def render_film_pallas(camera: Camera, scene: Scene, samples: int,
-                       depth: int = 5, *, seed: int = 1,
-                       tile_rows: int = DEFAULT_TILE_ROWS,
+                       depth: int = 5, *, seed: int = 1, interpret: bool,
+                       block: int = DEFAULT_BLOCK,
+                       num_warps: int = DEFAULT_NUM_WARPS,
                        spp_per_call: Optional[int] = None,
-                       interpret: bool = False,
                        loop: Optional[str] = None,
                        verbose: bool = False) -> Film:
-    """Render the sample-averaged linear film with the Pallas megakernel.
+    """Render the sample-averaged linear film with the megakernel.
 
-    ``loop``: intersection formulation, "plucker" (default, fastest) or
-    "mt" (bit-comparable with the XLA path; see _kernel)."""
+    ``loop``: intersection formulation, "mt" (default; operation for
+    operation the XLA path) or "plucker" (fewer operations, not watertight
+    at large coordinates; see the module docstring)."""
     film = render_sum_pallas(
-        camera, scene, 0, samples, depth, seed=seed, tile_rows=tile_rows,
-        spp_per_call=spp_per_call, interpret=interpret, loop=loop,
-        verbose=verbose)
+        camera, scene, 0, samples, depth, seed=seed, interpret=interpret,
+        block=block, num_warps=num_warps, spp_per_call=spp_per_call,
+        loop=loop, verbose=verbose)
     film = film / np.float32(samples)
     return Film(camera.res, data=film.block_until_ready())

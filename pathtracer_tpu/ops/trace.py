@@ -5,7 +5,7 @@ plus a backward fold over a per-bounce stack.  Both compute, per path,
 
     L = emit_0 + 2*c0*cos0 * (emit_1 + 2*c1*cos1 * (...))
 
-The TPU-native form used here is the algebraically-identical *forward
+The form used here is the algebraically-identical *forward
 accumulation*: carry a throughput multiplier and add ``throughput * emit`` at
 every hit, multiplying ``throughput *= 2 * albedo * cos`` on every continuing
 bounce.  This needs no stack, is a fixed-length ``lax.scan`` over the depth,
@@ -20,23 +20,19 @@ Termination semantics match the reference exactly:
                       is applied to SPECULAR bounces, inherited behaviour.
   * next origin    -> hit_p + normal * SHIFT_BIAS      (render.h:16,52)
 
-Dead rays are masked, not compacted: at depth 5 the wasted lanes cost less
-than any reshuffle would (the GPU reference wastes the same work in its
-in-shader loop).  Wavefront compaction for deep paths lives in
+Dead rays are masked, not compacted (the GPU reference wastes the same
+work in its in-shader loop).  Wavefront compaction for deep paths lives in
 ``ops/wavefront.py``.
 
 Per-triangle shading constants (albedo, emission, roughness, geometric
-normal, type flags) are folded into ONE (T, 12) table, and the per-ray
-"gather" by hit triangle id is a one-hot matmul — the idiomatic TPU gather,
-which runs on the MXU instead of scalar loads, and doubles as the exact
-linearization point for material gradients.
+normal, type flags) are folded into ONE (T, 12) table, gathered per ray by
+hit triangle id.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -78,25 +74,15 @@ def shade_table(scene: Scene) -> jnp.ndarray:
     )
 
 
-ONEHOT_GATHER_MAX_ROWS = 4096
-
-
 def gather_features(table: jnp.ndarray, tid: jnp.ndarray) -> jnp.ndarray:
     """Gather of shade-table rows: (...,) ids -> (..., 12).
 
     tid may be -1 (miss); those rows come back all-zero, which downstream
-    masking ignores anyway.
-
-    Small tables go through a one-hot matmul (the MXU-friendly gather on
-    TPU).  Large tables use a real gather: the one-hot's BACKWARD
-    materializes the (rays, T) matrix — at 105k triangles x 16k rays
-    that is 6.9 GB and the 9.8k-scene recovery OOMed at 64 spp for the
-    same reason (round-5 finding); lax gather/scatter-add keep memory
-    linear in rays + T."""
-    T = table.shape[0]
-    if T <= ONEHOT_GATHER_MAX_ROWS:
-        onehot = jax.nn.one_hot(tid, T, dtype=table.dtype)  # -1 -> zeros
-        return onehot @ table
+    masking ignores anyway.  A plain gather in float32 for every table
+    size (a one-hot matmul could run in reduced precision on a GPU's tensor
+    cores).  Its gradient is a scatter-add into the table, whose summation
+    order on a GPU may change from run to run.
+    """
     feat = jnp.take(table, jnp.maximum(tid, 0), axis=0)
     return jnp.where((tid >= 0)[..., None], feat, 0.0)
 
@@ -128,7 +114,6 @@ def trace_rays(
     rng_state: jnp.ndarray,
     has_specular: bool = True,
     park_pose=None,
-    unroll: bool = False,
 ):
     """Trace a ray batch to radiance.
 
@@ -138,12 +123,10 @@ def trace_rays(
     depth: static bounce budget.
     park_pose: optional ((3,), (3,)) guaranteed-miss (origin, direction).
       When given, DEAD rays are moved there instead of keeping their last
-      pose — the TPU-native analog of wavefront stream compaction: sorted
-      -traversal backends (ops/pallas/cluster_kernel) group parked rays
-      into tiles whose every cluster test fails, so dead lanes cost one
-      AABB sweep instead of full traversal.  Radiance is identical either
-      way (dead rays are masked); pass a pose outside the scene's AABB
-      pointing away from it.
+      pose, so a BVH traversal ends for them at the root box instead of
+      re-walking the tree.  Radiance is identical either way (dead rays
+      are masked); pass a pose outside the scene's AABB pointing away
+      from it.
     Returns radiance (..., 3).
     """
     zeros3 = jnp.zeros_like(ray_o)
@@ -203,17 +186,5 @@ def trace_rays(
         jnp.ones(ray_o.shape[:-1], bool),
         rng_state,
     )
-    if unroll:
-        # Straight-line bounce chain (static depth).  The differentiable
-        # cluster path NEEDS this: a Pallas call inside a lax.scan body
-        # makes XLA stage its VMEM triangle window through SCOPED vmem
-        # (lane-padded; 16MB cap -> ~30k-tri ceiling, measured 51.8MB at
-        # 105k).  Unrolled, the window binds directly and the ceiling
-        # disappears — gradients are identical (same math, same
-        # residuals).
-        carry = init
-        for _ in range(depth):
-            carry, _ = body(carry, None)
-        return carry[3]
     (_, _, _, rad, _, _), _ = lax.scan(body, init, None, length=depth)
     return rad

@@ -2,29 +2,22 @@
 
 The reference megakernel gives every pixel a private thread for its whole
 path (shader.h:219-259); lanes idle once paths die.  The classic CUDA
-wavefront answer is stream compaction between bounces — a global sort that
-keeps warps dense.  On a TPU the machine primitives are different, so the
-pipeline here maps each wavefront concept to what the hardware does well:
+wavefront answer is stream compaction between bounces.  This module maps
+each wavefront stage onto XLA:
 
   stage                 CUDA wavefront              this module
   -------------------   -------------------------   -------------------------
   ray-gen               kernel over pixel queue     ``raygen`` (fused XLA)
   traverse/intersect    persistent-threads kernel   backend intersect
-                                                    (dense / BVH / Pallas
-                                                    cluster kernel)
+                                                    (dense or BVH)
   shade/scatter         kernel + film atomics       ``bounce_stage`` +
                                                     ``segment_sum`` by pixel
                                                     (race-free, SURVEY §5)
   compact               global stream compaction    PARKING: dead rays move
                                                     to a guaranteed-miss
-                                                    pose; the cluster
-                                                    backend's coherence sort
-                                                    then packs them into
-                                                    tiles whose every AABB
-                                                    test fails (the sort it
-                                                    already does per call —
-                                                    compaction costs zero
-                                                    extra dispatches)
+                                                    pose, so their BVH
+                                                    traversal ends at the
+                                                    root box
 
 Control flow is fully jit-resident: ONE ``lax.scan`` over sample blocks
 wraps a ``lax.scan`` over bounces, and each bounce body sits behind a
@@ -34,24 +27,10 @@ An explicit argsort-partition ``compact`` is kept for the tests and as
 the reference point the parking design replaced.
 
 The whole render is a single device dispatch: the host loop of
-render.py's tile driver disappears.
-
-MEASURED VERDICT (round 3, Cornell 512^2 x 64 spp on one v5e): this
-pipeline sustains 1.0e7 rays/s at depth 5 and 2.6e7 at depth 16 — 10-30x
-BEHIND the fused Pallas megakernel (3.1e8 / 6.0e8 on the same configs)
-and ~5-9x behind even the XLA tile driver.  The round-2 hypothesis that
-wavefront early-exit pays at depth >= 8 is refuted on this hardware: the
-megakernel's dead lanes are masked vector ops that cost almost nothing
-(its NOMINAL rays/s nearly doubles at depth 16 for that reason), while
-the wavefront's per-bounce XLA boundaries (film ``segment_sum`` scatter,
-queue rebuilds, dispatch) cost far more than the compute they skip.  The
-CUDA wavefront architecture does not transfer to a TPU: staged queues
-exist to keep WARPS convergent, and the TPU has no divergence to fix at
-this granularity — coherence has to come from the SAMPLER instead (see
-ops/pallas/beam_kernel.py).  The module stays as capability parity with
-the reference's chunked-dispatch mode (render.h:219-259 analog), as the
-measurement record, and as the race-free scatter pattern (SURVEY §5);
-``_auto_backend`` never selects it.
+render.py's tile driver disappears.  The module is capability parity with
+the reference's chunked-dispatch mode and the race-free scatter pattern
+(SURVEY §5); the ``auto`` policy never selects it.  Its speed on the GPU
+is not measured.
 """
 
 from __future__ import annotations
@@ -62,6 +41,7 @@ import jax
 import jax.numpy as jnp
 
 from .. import materials as mat
+from .. import policy
 from ..linalg import SHIFT_BIAS, dot
 from ..scene import Scene
 from . import intersect as isect
@@ -149,20 +129,15 @@ def compact(queue):
     return {k: v[order] for k, v in queue.items()}
 
 
-def _make_intersect(scene: Scene, backend: str, accel, interpret: bool):
-    if backend == "cluster":
-        from .pallas import cluster_kernel
-
-        def intersect_fn(o, d):
-            return cluster_kernel.intersect_clusters(
-                o, d, accel, interpret=interpret)
-    elif backend == "bvh":
+def _make_intersect(scene: Scene, backend: str, accel):
+    if backend in ("bvh", "bvh-gather"):
+        fn = (isect.intersect_bvh if backend == "bvh-gather"
+              else isect.intersect_bvh_packet)
         max_leaf, stack_size = accel.max_leaf, accel.stack_size()
 
         def intersect_fn(o, d):
-            return isect.intersect_bvh_packet(
-                o, d, accel, scene.v1, scene.v2, scene.v3,
-                max_leaf=max_leaf, stack_size=stack_size)
+            return fn(o, d, accel, scene.v1, scene.v2, scene.v3,
+                      max_leaf=max_leaf, stack_size=stack_size)
     else:
         def intersect_fn(o, d):
             return isect.intersect_brute(o, d, scene.v1, scene.v2,
@@ -191,8 +166,9 @@ def render_wavefront(
     float32 reassociation (film accumulation order differs: per-bounce
     ``segment_sum`` over a block scan here vs per-tile sample sums there).
 
-    backend: 'auto' (cluster for OBJ-scale scenes on TPU, bvh on CPU,
-    brute for small), or explicit 'brute' | 'bvh' | 'cluster'.
+    backend: 'auto' (policy.py, with the XLA dense path standing in for
+    the megakernel on small scenes), or explicit 'brute' | 'bvh' |
+    'bvh-gather'.
     compact_every: if > 0, run the explicit argsort ``compact`` every k
     bounces INSTEAD of parking (measurement/reference mode).
     """
@@ -202,28 +178,18 @@ def render_wavefront(
     width, height = camera.res
     npix = width * height
 
-    if backend == "auto":
-        if scene.padded_size <= 512:
-            backend = "brute"
-        else:
-            backend = ("cluster"
-                       if jax.default_backend() not in ("cpu",) else "bvh")
-
+    # the stages are XLA, so resolve as the differentiable callers do (no
+    # megakernel)
+    backend = policy.resolve(backend, scene, differentiable=True)
     accel = bvh
-    interpret = False
     park = None
-    if backend == "bvh":
+    if backend in ("bvh", "bvh-gather"):
         if accel is None:
             accel = build_bvh(scene)
-    elif backend == "cluster":
-        from ..clusters import ClusterSet, build_clusters
-        if not isinstance(accel, ClusterSet):
-            accel = build_clusters(scene, bvh=accel)
-        interpret = jax.default_backend() == "cpu"
-    if backend in ("bvh", "cluster") and not compact_every:
-        park = park_pose(scene)
+        if not compact_every:
+            park = park_pose(scene)
 
-    intersect_fn = _make_intersect(scene, backend, accel, interpret)
+    intersect_fn = _make_intersect(scene, backend, accel)
     table = shade_table(scene)
 
     if spp_per_block is None:

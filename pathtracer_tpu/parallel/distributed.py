@@ -1,14 +1,15 @@
 """Multi-host initialization and host-level orchestration.
 
 The reference has no distributed story at all (single process, SURVEY.md
-section 5).  For multi-host TPU pods:
+section 5).  For multi-host clusters:
 
   * every host runs the same program; ``initialize()`` wires up
     ``jax.distributed`` (coordinator discovery via env or args), after which
-    ``jax.devices()`` is global and the (tile, sample) mesh spans the pod —
+    ``jax.devices()`` is global and the (tile, sample) mesh spans the hosts —
     nothing else in the framework changes, because all cross-device
-    communication is expressed as mesh collectives (psum over ICI within a
-    slice; DCN only carries the jax.distributed control plane).
+    communication is expressed as mesh collectives (psum over the device
+    interconnect; the host network carries the jax.distributed control
+    plane).
   * film assembly: each host materializes only its addressable shards;
     ``gather_film`` brings the full film to host 0 for I/O at epoch end.
 """

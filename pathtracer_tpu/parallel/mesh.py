@@ -4,7 +4,7 @@ Axes:
   * ``tile``   — pixel-row tiles (the spatial axis of the film). The film
                  output stays sharded along this axis.
   * ``sample`` — Monte-Carlo sample batches. Film contributions along this
-                 axis are partial sums, reduced with ``psum`` over ICI — the
+                 axis are partial sums, reduced with ``psum`` — the
                  radiance estimate is a mean, so the reduction is exactly
                  reassociable (SURVEY.md section 5).
 

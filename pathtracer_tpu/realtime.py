@@ -4,7 +4,7 @@ The reference's realtime viewer (render.h:219-387) is an SFML window whose
 interesting core is a state machine: a frame counter + accumulation texture
 that blends each new frame-sample batch as ``mix(prev, cur, 1/(frame+1))``
 (shader.h:299-304) and RESETS whenever the camera moves.  The SFML window
-itself is out of TPU scope (SURVEY.md section 2); this module reproduces the
+itself is out of scope (SURVEY.md section 2); this module reproduces the
 state machine headlessly and scriptably, with the exact keyboard-control
 semantics (WASD/arrows/space/z/r, render.h:268-359) exposed as methods, and
 screenshots on demand ('p').
@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from . import policy
 from . import rng as prng
 from .camera import (BACKWARD, DOWN, FORWARD, LEFT, RIGHT, UP, Camera,
                      move, rotate)
@@ -29,28 +30,6 @@ from .image import Film
 from .linalg import DEG2RAD
 from .render import render_film
 from .scene import Scene
-
-
-def _pick_backend(camera: Camera, scene: Scene, backend: str) -> str:
-    """Resolve 'auto' for interactive use: big scenes on TPU go through
-    the coherent-beam megakernel when the film shape allows it — the
-    progressive accumulation averages away the beam mode's tile-correlated
-    noise across frames, and at ~8e7 rays/s a 256^2 frame batch is tens of
-    milliseconds instead of seconds (the round-2 review's 'realtime on an
-    OBJ scene would be seconds per frame' gap)."""
-    if backend != "auto":
-        return backend
-    from .render import BRUTE_MAX, _on_tpu
-
-    if scene.padded_size > BRUTE_MAX and _on_tpu():
-        try:
-            from .ops.pallas import beam_kernel
-            accel = beam_kernel._accel_for(scene)
-            if accel.num_superclusters <= beam_kernel.MAX_BEAM_SC:
-                return "beam"
-        except ValueError:
-            pass
-    return backend
 
 
 class RealtimeSession:
@@ -76,7 +55,8 @@ class RealtimeSession:
         self.seed = seed
         self.screenshot_dir = screenshot_dir
         self.accumulate = accumulate
-        self.backend = _pick_backend(camera, scene, backend)
+        # resolved once, from the platform and scene size (policy.py)
+        self.backend = policy.resolve(backend, scene)
         self.frame = 0
         w, h = camera.res
         self._accum = np.zeros((h, w, 3), np.float32)
@@ -194,9 +174,9 @@ def render_realtime(camera: Camera, scene: Scene, depth: int,
 def ansi_frame(img: np.ndarray, max_cols: int = 128) -> str:
     """Render an (H, W, 3) float image in [0,1] as 24-bit ANSI half-block
     text (2 pixels per character row: upper via foreground '▀', lower via
-    background).  The TPU-appropriate 'window': works over any terminal,
+    background).  The headless 'window': works over any terminal,
     including SSH — the reference's SFML window (render.h:219-387) has no
-    display to attach to on a TPU host."""
+    display to attach to on a remote accelerator host."""
     h, w = img.shape[:2]
     step = max(1, (w + max_cols - 1) // max_cols)
     small = img[:: step, :: step]

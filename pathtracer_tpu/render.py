@@ -1,24 +1,21 @@
-"""Render drivers (L4), the TPU-native analog of render.h:62-152.
+"""Render drivers (L4), the analog of render.h:62-152.
 
 The reference has three drivers — a single-threaded recursive CPU loop, a
-chunked OpenGL dispatch, and an SFML realtime loop.  Here there is ONE
-driver: a jit-compiled tile pass (all pixels of a row-tile x a sample block,
-traced as one fused XLA program) dispatched in a host loop over row tiles
-and sample blocks.  The host loop is the analog of the reference's chunked
-GPU dispatch (render.h:128-139): it bounds device memory (the dense
-rays x triangles intermediates of the brute-force intersector) and gives
-natural progress reporting; each pass is internally a ``lax.scan`` over
-sample blocks so dispatch overhead amortizes away.
+chunked OpenGL dispatch, and an SFML realtime loop.  Here there are two:
 
-Backend selection ('auto'):
-  * small scenes (<= BRUTE_MAX padded triangles) on TPU -> the fused
-    Pallas megakernel ('pallas'); on CPU the dense XLA path ('brute');
-  * larger scenes on TPU -> the coherent-beam megakernel ('beam',
-    ops/pallas/beam_kernel.py; any resolution and cluster count since
-    round 4), falling back to the Pallas cluster traversal ('cluster')
-    with a warning only when the accel cannot represent the scene; on
-    CPU the XLA packet-BVH ('bvh').
-  See _auto_backend for the exact rules.
+  * the fused megakernel ('pallas', ops/pallas/trace_kernel.py): one GPU
+    launch traces every pixel of the film for a window of samples, the
+    analog of the reference's fragment-shader dispatch;
+  * a jit-compiled XLA tile pass ('brute', 'bvh', 'bvh-gather'): all pixels
+    of a row tile x a sample block, traced as one fused XLA program and
+    dispatched in a host loop over row tiles and sample blocks (the analog
+    of the reference's chunked dispatch, render.h:128-139).  The host loop
+    bounds device memory (the dense rays x triangles intermediates of the
+    brute-force intersector) and gives progress reporting; each pass is a
+    ``lax.scan`` over sample blocks so dispatch overhead amortizes away.
+
+``backend="auto"`` is resolved by policy.py from the device platform and
+the scene size.
 
 RNG discipline: one independent hash stream per (pixel, sample) pair
 (rng.sample_seed), consumed jitter-first-then-bounces exactly like the GPU
@@ -34,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from . import policy
 from . import rng as prng
 from .bvh import FlatBVH, build_bvh
 from .camera import Camera, get_rays
@@ -43,7 +41,6 @@ from .ops import trace as trace_ops
 from .scene import Scene
 from .utils.timer import Timer
 
-BRUTE_MAX = 512          # max padded triangle count for the dense path
 TARGET_RAYS_PER_PASS = 1 << 21   # rays traced per jitted tile pass
 TARGET_RAYS_PER_CALL = 1 << 24   # rays per host dispatch (scan of passes)
 
@@ -52,13 +49,12 @@ _STEP_CACHE = {}
 
 def _tile_step(backend: str, tile_h: int, width: int, res_y: int, spp_b: int,
                n_blocks: int, depth: int, base_seed: int,
-               max_leaf: int, stack_size: int, interpret: bool = False,
-               park=None):
+               max_leaf: int, stack_size: int, park=None):
     """Build (and cache) the jitted pass: trace ``n_blocks`` sample blocks of
     ``spp_b`` samples for a ``tile_h x width`` pixel tile, returning the tile's
     radiance SUM over those samples."""
     key = (backend, tile_h, width, res_y, spp_b, n_blocks, depth, base_seed,
-           max_leaf, stack_size, interpret, park)
+           max_leaf, stack_size, park)
     if key in _STEP_CACHE:
         return _STEP_CACHE[key]
 
@@ -67,9 +63,8 @@ def _tile_step(backend: str, tile_h: int, width: int, res_y: int, spp_b: int,
         h = jax.lax.broadcasted_iota(jnp.int32, (tile_h, width), 0) + h0
 
         if backend in ("bvh", "bvh-gather"):
-            # Packet traversal (shared scalar stack per ray packet) or the
-            # per-ray-stack variant (kept for measurement; see
-            # intersect.py docstrings).
+            # Packet traversal (one stack shared by a ray packet) or one
+            # stack per ray (see the intersect.py docstrings).
             _bvh_fn = (isect.intersect_bvh if backend == "bvh-gather"
                        else isect.intersect_bvh_packet)
 
@@ -79,15 +74,6 @@ def _tile_step(backend: str, tile_h: int, width: int, res_y: int, spp_b: int,
                 t, tid = _bvh_fn(
                     flat_o, flat_d, accel, scene.v1, scene.v2, scene.v3,
                     max_leaf=max_leaf, stack_size=stack_size)
-                return t.reshape(o.shape[:-1]), tid.reshape(o.shape[:-1])
-        elif backend == "cluster":
-            from .ops.pallas import cluster_kernel
-
-            def intersect(o, d):
-                flat_o = o.reshape(-1, 3)
-                flat_d = d.reshape(-1, 3)
-                t, tid = cluster_kernel.intersect_clusters(
-                    flat_o, flat_d, accel, interpret=interpret)
                 return t.reshape(o.shape[:-1]), tid.reshape(o.shape[:-1])
         else:
             def intersect(o, d):
@@ -118,75 +104,20 @@ def _tile_step(backend: str, tile_h: int, width: int, res_y: int, spp_b: int,
     return fn
 
 
-def _plan(width: int, height: int, samples: int, n_tris: int,
-          backend: str = "brute"):
+def _plan(width: int, height: int, samples: int, n_tris: int):
     """Choose (tile_h, spp_b, blocks_per_call) to hit the ray-count targets.
 
     The dense intersector materializes O(rays * n_tris) floats transiently;
-    scale the per-pass ray budget down for bigger scenes.  The cluster
-    backend's memory is O(rays), so it always takes the full ray budget
-    (big batches amortize its sort + kernel-dispatch overhead)."""
-    if backend == "cluster":
-        per_pass = TARGET_RAYS_PER_PASS
-    else:
-        per_pass = max(1 << 16, TARGET_RAYS_PER_PASS // max(1, n_tris // 32))
+    scale the per-pass ray budget down for bigger scenes."""
+    per_pass = max(1 << 16, TARGET_RAYS_PER_PASS // max(1, n_tris // 32))
     # No divisibility requirement: the driver handles a ragged last tile
     # (a divisor search could degrade to 1-row tiles for prime heights,
-    # making the tile driver dispatch-bound — round-4 advisor finding).
+    # making the tile driver dispatch-bound).
     tile_h = max(1, min(height, per_pass // max(1, width)))
     spp_b = max(1, min(samples, per_pass // (tile_h * width)))
     blocks = max(1, min(samples // spp_b,
                         TARGET_RAYS_PER_CALL // (tile_h * width * spp_b)))
     return tile_h, spp_b, blocks
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
-def _auto_backend(camera: Camera, scene: Scene,
-                  checkpoint=None) -> str:
-    """Pick the fastest valid backend: the fused Pallas megakernel on real
-    TPU hardware (small scenes, power-of-two width); for big scenes on
-    TPU the coherent-beam megakernel (same unbiased estimator and
-    per-pixel variance as independent sampling — measured PSNR-equal at
-    equal spp, see README "Large scenes" — but tile-correlated noise;
-    any resolution and any cluster count since round 4, and resumable
-    renders checkpoint at sample-block boundaries); the dense XLA path
-    on CPU or odd sizes; the XLA packet-BVH for big scenes on CPU.
-
-    If the beam accel cannot represent the scene (a supercluster
-    overflow or a non-EMIT emissive material), the 6.7x-slower cluster
-    path is used and a warning says so — never a silent cliff."""
-    width, height = camera.res
-    if scene.padded_size > BRUTE_MAX:
-        if not _on_tpu():
-            return "bvh"
-        try:
-            from .ops.pallas import beam_kernel
-            accel = beam_kernel._accel_for(scene)
-            if accel.num_superclusters <= beam_kernel.MAX_BEAM_SC:
-                return "beam"
-            reason = (f"{accel.num_superclusters} superclusters > "
-                      f"{beam_kernel.MAX_BEAM_SC}")
-        except ValueError as e:
-            reason = str(e)
-        import warnings
-        from .ops.pallas.cluster_kernel import MAX_CLUSTER_TRIS_ON_DEVICE
-        fb = ("cluster" if scene.num_tris <= MAX_CLUSTER_TRIS_ON_DEVICE
-              else "bvh")  # cluster's on-device scoped-vmem ceiling
-        warnings.warn(
-            f"auto backend: falling back from the beam megakernel to the "
-            f"slower {fb!r} path: {reason}", stacklevel=2)
-        return fb
-    from .ops.pallas.trace_kernel import MAX_PALLAS_TRIS
-    if (_on_tpu() and scene.num_tris <= MAX_PALLAS_TRIS
-            and width & (width - 1) == 0):
-        return "pallas"
-    return "brute"
 
 
 def _sample_schedule(samples: int, spp_b: int, blocks: int):
@@ -209,7 +140,8 @@ def _sample_schedule(samples: int, spp_b: int, blocks: int):
 
 def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
                 *, bvh: Optional[FlatBVH] = None, seed: int = prng.SEED,
-                backend: str = "auto", verbose: bool = False,
+                backend: str = "auto", interpret: bool = False,
+                verbose: bool = False,
                 checkpoint: Optional[str] = None,
                 checkpoint_every: int = 1,
                 _abort_after: Optional[int] = None) -> Film:
@@ -218,6 +150,11 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     The driver equivalent of the loop cores of render_cpu/render_gpu
     (render.h:80-88, 128-139), minus color correction and file output —
     see :func:`render` for the full pipeline.
+
+    backend: "auto" (policy.py), "pallas" (the GPU megakernel), "brute",
+    "bvh", "bvh-gather" or "wavefront".  ``interpret=True`` runs the
+    megakernel in the Pallas interpreter (tests); without it, "pallas"
+    needs a GPU.
 
     checkpoint: path to a .npz resume file.  If it exists, the render
     resumes at the recorded sample index and produces a film BIT-IDENTICAL
@@ -231,39 +168,22 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     """
     if scene.num_tris == 0:
         raise ValueError("No triangles in scene.")
-    if backend == "auto":
-        backend = _auto_backend(camera, scene, checkpoint)
+    if backend != "wavefront":
+        backend = policy.resolve(backend, scene)
     if backend == "pallas" and checkpoint is None:
         from .ops.pallas import trace_kernel
         return trace_kernel.render_film_pallas(
-            camera, scene, samples, depth, seed=seed,
-            interpret=not _on_tpu(), verbose=verbose)
+            camera, scene, samples, depth, seed=seed, interpret=interpret,
+            verbose=verbose)
     if backend == "pallas":
         # Block-boundary checkpointing: the megakernel renders sample
         # windows whose SUMS compose exactly (independent per-(pixel,
         # sample) RNG streams), so saving (film_sum, samples_done) between
-        # windows gives bit-identical resume — no fallback to the slow
-        # tile driver (a round-2 review finding).
+        # windows gives bit-identical resume.
         return _render_pallas_checkpointed(
             camera, scene, samples, depth, seed=seed, checkpoint=checkpoint,
-            checkpoint_every=checkpoint_every, verbose=verbose,
-            _abort_after=_abort_after)
-    if backend == "mxu":
-        raise ValueError(
-            "the MXU-offloaded kernel was removed after losing its ablation "
-            "(see README 'MXU ablation'): with a 16-wide feature vector the "
-            "systolic array pads K to 128 (~8% utilization), landing at VPU "
-            "speed before relayout cost; use backend='pallas'")
-    if backend == "beam":
-        from .ops.pallas import beam_kernel
-        if checkpoint is not None:
-            return _render_beam_checkpointed(
-                camera, scene, samples, depth, seed=seed,
-                checkpoint=checkpoint, checkpoint_every=checkpoint_every,
-                verbose=verbose, _abort_after=_abort_after)
-        return beam_kernel.render_film_beam(
-            camera, scene, samples, depth, seed=seed,
-            interpret=not _on_tpu(), verbose=verbose)
+            checkpoint_every=checkpoint_every, interpret=interpret,
+            verbose=verbose, _abort_after=_abort_after)
     if backend == "wavefront":
         if checkpoint is not None:
             raise ValueError(
@@ -277,35 +197,18 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
         return Film(camera.res, data=film)
     accel = bvh
     max_leaf = stack_size = 0
-    interpret = False
     park = None
     if backend in ("bvh", "bvh-gather"):
         if accel is None:
             accel = build_bvh(scene)
         max_leaf = accel.max_leaf
         stack_size = accel.stack_size()
-    elif backend == "cluster":
-        from .clusters import ClusterSet, build_clusters
-        from .ops.pallas.cluster_kernel import MAX_CLUSTER_TRIS_ON_DEVICE
-        if _on_tpu() and scene.num_tris > MAX_CLUSTER_TRIS_ON_DEVICE:
-            raise ValueError(
-                f"backend='cluster' supports <= "
-                f"{MAX_CLUSTER_TRIS_ON_DEVICE} triangles on device (the "
-                f"tile driver stages the triangle window through the "
-                f"16MB scoped-vmem budget; got {scene.num_tris}).  Use "
-                f"backend='beam' (renders any size) or 'bvh'.")
-        if not isinstance(accel, ClusterSet):
-            accel = build_clusters(scene, bvh=accel)
-        interpret = not _on_tpu()  # Pallas interpreter on CPU (tests)
-    if backend in ("bvh", "bvh-gather", "cluster"):
-        # Park dead rays at a guaranteed-miss pose (see trace_rays): the
-        # coherence sort then packs them into tiles that fail every AABB
-        # test, the structural analog of wavefront compaction.
+        # Park dead rays at a guaranteed-miss pose (see trace_rays): their
+        # traversal then ends at the root box.
         park = trace_ops.park_pose(scene)
 
     width, height = camera.res
-    tile_h, spp_b, blocks = _plan(width, height, samples,
-                                  scene.padded_size, backend)
+    tile_h, spp_b, blocks = _plan(width, height, samples, scene.padded_size)
     table = trace_ops.shade_table(scene)
     sched = _sample_schedule(samples, spp_b, blocks)
 
@@ -342,8 +245,7 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
         for h0 in range(0, height, tile_h):
             th = min(tile_h, height - h0)  # ragged last tile
             step = _tile_step(backend, th, width, height, this_spp, nb,
-                              depth, seed, max_leaf, stack_size, interpret,
-                              park)
+                              depth, seed, max_leaf, stack_size, park)
             acc = step(scene, table, camera, accel,
                        jnp.int32(h0), jnp.int32(s0))
             film = film.at[h0 : h0 + th].add(acc)
@@ -374,6 +276,7 @@ def render_film(camera: Camera, scene: Scene, samples: int, depth: int = 5,
 def _render_pallas_checkpointed(camera: Camera, scene: Scene, samples: int,
                                 depth: int, *, seed: int, checkpoint: str,
                                 checkpoint_every: int = 1,
+                                interpret: bool = False,
                                 verbose: bool = False,
                                 _abort_after: Optional[int] = None,
                                 block_spp: Optional[int] = None) -> Film:
@@ -407,13 +310,12 @@ def _render_pallas_checkpointed(camera: Camera, scene: Scene, samples: int,
         if verbose:
             print(f"Resuming at sample {samples_done}/{samples}.")
 
-    interp = not _on_tpu()
     blocks_done = 0
     while samples_done < samples:
         spp = min(block_spp, samples - samples_done)
         film = film + trace_kernel.render_sum_pallas(
             camera, scene, samples_done, spp, depth, seed=seed,
-            spp_per_call=spp, interpret=interp)
+            spp_per_call=spp, interpret=interpret)
         samples_done += spp
         blocks_done += 1
         if (blocks_done % checkpoint_every == 0
@@ -426,70 +328,6 @@ def _render_pallas_checkpointed(camera: Camera, scene: Scene, samples: int,
         if _abort_after is not None and blocks_done >= _abort_after:
             ckpt.save_render_checkpoint(
                 checkpoint, np.asarray(film), samples_done, meta)
-            raise KeyboardInterrupt(
-                f"aborted after {blocks_done} blocks (test hook)")
-    if verbose:
-        print()
-    return Film((width, height), data=(film / np.float32(samples)))
-
-
-def _render_beam_checkpointed(camera: Camera, scene: Scene, samples: int,
-                              depth: int, *, seed: int, checkpoint: str,
-                              checkpoint_every: int = 1,
-                              verbose: bool = False,
-                              _abort_after: Optional[int] = None,
-                              block_spp: Optional[int] = None) -> Film:
-    """Resumable coherent-beam render: same block-boundary scheme as the
-    Pallas megakernel (render_sum_beam windows compose exactly because
-    every (pixel, sample) pair owns an independent RNG stream), closing
-    the round-3 'beam cannot checkpoint' cliff."""
-    import os
-
-    from .ops.pallas import beam_kernel
-    from .utils import checkpoint as ckpt
-
-    width, height = camera.res
-    if block_spp is None:
-        block_spp = max(1, min(samples, (1 << 24) // (width * height)))
-    meta = {"width": width, "height": height, "samples": samples,
-            "depth": depth, "seed": seed, "backend": "beam",
-            "block_spp": block_spp,
-            "scene_sum": float(scene.host_verts()[0].sum()
-                               + scene.host_materials()[1].sum())}
-
-    samples_done = 0
-    film = np.zeros((height, width, 3), np.float32)
-    cpath = checkpoint if checkpoint.endswith(".npz") else checkpoint + ".npz"
-    if os.path.exists(cpath):
-        film_sum, samples_done, saved = ckpt.load_render_checkpoint(cpath)
-        if saved != meta:
-            raise ValueError(
-                f"checkpoint {cpath} was written by a different render "
-                f"config:\n  saved: {saved}\n  this:  {meta}")
-        film = np.asarray(film_sum)
-        if verbose:
-            print(f"Resuming at sample {samples_done}/{samples}.")
-
-    interp = not _on_tpu()
-    accel = beam_kernel._accel_for(scene)
-    blocks_done = 0
-    while samples_done < samples:
-        spp = min(block_spp, samples - samples_done)
-        film = film + beam_kernel.render_sum_beam(
-            camera, scene, samples_done, spp, depth, seed=seed,
-            accel=accel, spp_per_call=spp, interpret=interp)
-        samples_done += spp
-        blocks_done += 1
-        if (blocks_done % checkpoint_every == 0
-                or samples_done >= samples):
-            ckpt.save_render_checkpoint(
-                checkpoint, film, samples_done, meta)
-        if verbose:
-            print(f"\rRendered: {samples_done}/{samples} spp.",
-                  end="", flush=True)
-        if _abort_after is not None and blocks_done >= _abort_after:
-            ckpt.save_render_checkpoint(
-                checkpoint, film, samples_done, meta)
             raise KeyboardInterrupt(
                 f"aborted after {blocks_done} blocks (test hook)")
     if verbose:
@@ -535,7 +373,8 @@ def render_debug_uv(res) -> Film:
 def render(camera: Camera, scene: Scene, samples: int, depth: int = 5,
            filename: Optional[str] = None, *, bvh: Optional[FlatBVH] = None,
            seed: int = prng.SEED, backend: str = "auto", gamma: float = 2.2,
-           checkpoint: Optional[str] = None, verbose: bool = True) -> Film:
+           checkpoint: Optional[str] = None, interpret: bool = False,
+           verbose: bool = True) -> Film:
     """Full render pipeline (render_cpu/render_gpu analog, render.h:62-152):
     trace, average, gamma-correct at 2.2, optionally save a PNG.  Returns the
     gamma-corrected Film and prints wall-clock + throughput like the
@@ -543,7 +382,7 @@ def render(camera: Camera, scene: Scene, samples: int, depth: int = 5,
     timer = Timer()
     film = render_film(camera, scene, samples, depth, bvh=bvh, seed=seed,
                        backend=backend, checkpoint=checkpoint,
-                       verbose=verbose)
+                       interpret=interpret, verbose=verbose)
     seconds = timer.seconds()
     if verbose:
         w, h = camera.res

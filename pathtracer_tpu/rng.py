@@ -12,8 +12,8 @@ Two RNG disciplines, mirroring the reference:
    the reference GPU megakernel (``shader.h:81-90``): an xorshift/multiply
    mixer advanced in place.  This is the parallel-friendly discipline (each
    pixel owns an independent u32 state seeded from its coordinates,
-   ``shader.h:283-287``) and is what the TPU pipeline uses.  All ops are
-   uint32 elementwise, fully vectorized over ray batches on the VPU.
+   ``shader.h:283-287``) and is what the device pipeline uses.  All ops
+   are uint32 elementwise, fully vectorized over ray batches.
 """
 
 from __future__ import annotations
@@ -63,9 +63,9 @@ def rand01(state):
     The reference computes float(state)/4294967295 (shader.h:89); float32
     only resolves ~24 bits of that anyway, so we use the top 24 bits
     directly: u = (state >> 8) / 2^24.  Statistically identical, and the
-    uint32 -> int32 -> float32 conversion chain is exactly expressible on
-    the TPU vector unit (Mosaic has no uint32->float cast), keeping the
-    Pallas kernel bit-identical to this path.
+    uint32 -> int32 -> float32 conversion chain is part of the contract with
+    the Pallas megakernel, which computes the same chain and so stays
+    bit-identical to this path.
     """
     state = hash_u32(state)
     u = (state >> 8).astype(jnp.int32).astype(jnp.float32)
@@ -100,7 +100,7 @@ def pixel_seed(w, h, res_y, frame=None):
 
 
 def sample_seed(w, h, res_y, sample_idx, base_seed: int = SEED):
-    """TPU sampling discipline: a distinct, decorrelated u32 stream per
+    """Device sampling discipline: a distinct, decorrelated u32 stream per
     (pixel, sample) pair so sample batches are order-independent and
     shardable.  We fold pixel index, sample index and the global seed
     through one hash round to decorrelate neighbouring streams.

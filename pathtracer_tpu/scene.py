@@ -1,9 +1,9 @@
 """Scene representation (L2): SoA triangle + material arrays.
 
 The reference stores an array-of-structs ``std::vector<Triangle>`` with an
-embedded ``Material`` per triangle (``triangle.h:7-23``).  The TPU-native
+embedded ``Material`` per triangle (``triangle.h:7-23``).  The device
 layout is structure-of-arrays: vertex arrays ``(T, 3)`` and per-triangle
-material columns, which load as contiguous VMEM tiles and broadcast cleanly
+material columns, which load as contiguous device arrays and broadcast cleanly
 against ray batches.  Triangle counts are padded to a lane-friendly multiple;
 padding triangles are degenerate (all-zero vertices) so Möller–Trumbore
 rejects them via the |det| < EPS test — no masks needed in the hot loop.

@@ -2,33 +2,60 @@
 
 The reference keeps its I/O-heavy and build-heavy components native (fpng
 PNG encoder, tinyobjloader, the C++ BVH builder inside bvh.h).  Our analogs
-live in ``native/pathtracer_native.cc`` compiled to a shared library; this
-module loads it lazily and exposes thin numpy wrappers.  Every caller has a
-pure-Python fallback, so the framework works without the library (e.g.
-before ``make -C native`` has run).
+live in ``native/pathtracer_native.cc``.  The shared library is not kept in
+git: the first use builds it with ``make -C native`` (under a file lock, to
+a temporary name renamed into place, so several processes starting at once
+build it once and never load a half-written file).  Every caller has a
+pure-Python fallback, so the framework works where no compiler is present.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "native")
+LIB_PATH = os.path.join(_NATIVE_DIR, "libpathtracer_native.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "pathtracer_native.cc")
 
 _LIB = None
 _TRIED = False
 
 
-def _find_lib() -> Optional[str]:
-    root = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
-    for cand in (
-        os.path.join(root, "native", "libpathtracer_native.so"),
-        os.path.join(os.path.dirname(__file__), "libpathtracer_native.so"),
-    ):
-        if os.path.exists(cand):
-            return cand
-    return None
+def _up_to_date() -> bool:
+    return (os.path.exists(LIB_PATH)
+            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(_SRC_PATH))
+
+
+def build() -> Optional[str]:
+    """Build the library if it is missing or older than its source;
+    returns its path, or None when it cannot be built."""
+    if not os.path.exists(_SRC_PATH):
+        return LIB_PATH if os.path.exists(LIB_PATH) else None
+    if _up_to_date():
+        return LIB_PATH
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _up_to_date():  # another process built it while we waited
+            return LIB_PATH
+        tmp = f"libpathtracer_native.so.tmp.{os.getpid()}"
+        try:
+            subprocess.run(["make", "-s", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                           check=True, capture_output=True, text=True)
+        except (OSError, subprocess.CalledProcessError) as e:
+            warnings.warn(f"native library not built ({e}); using the "
+                          f"Python fallbacks", stacklevel=2)
+            return None
+        os.replace(os.path.join(_NATIVE_DIR, tmp), LIB_PATH)
+    return LIB_PATH
 
 
 def get_lib():
@@ -36,7 +63,7 @@ def get_lib():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = _find_lib()
+    path = build()
     if path is None:
         return None
     lib = ctypes.CDLL(path)

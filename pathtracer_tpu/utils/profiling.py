@@ -6,7 +6,7 @@ progress prints (SURVEY.md section 5).  Here:
   * RaysPerSecond — steady-state ray-segment throughput meter that
     excludes compile time (first call) from the measurement.
   * trace_annotation / profile_to — thin wrappers over jax.profiler for
-    capturing TPU traces viewable in TensorBoard/XProf.
+    capturing device traces viewable in TensorBoard/XProf or Perfetto.
 """
 
 from __future__ import annotations

@@ -129,9 +129,9 @@ def test_recover_materials_kill_resume(tmp_path):
 
 
 def test_pallas_kill_resume_bit_identical(tmp_path):
-    """Round-2 review item: backend='pallas' + checkpoint must NOT fall
-    back to the slow tile driver; the megakernel checkpoints at sample
-    -window boundaries and resumes bit-identically."""
+    """backend='pallas' + checkpoint must NOT fall back to the slow tile
+    driver; the megakernel checkpoints at sample-window boundaries and
+    resumes bit-identically (interpret mode on the CPU)."""
     import pytest
 
     from pathtracer_tpu.render import _render_pallas_checkpointed
@@ -141,21 +141,23 @@ def test_pallas_kill_resume_bit_identical(tmp_path):
 
     full = _render_pallas_checkpointed(
         cam, scene, samples=8, depth=3, seed=5,
-        checkpoint=os.path.join(tmp_path, "full.npz"), block_spp=2)
+        checkpoint=os.path.join(tmp_path, "full.npz"), block_spp=2,
+        interpret=True)
 
     with pytest.raises(KeyboardInterrupt):
         _render_pallas_checkpointed(cam, scene, samples=8, depth=3, seed=5,
                                     checkpoint=path, block_spp=2,
-                                    _abort_after=2)
+                                    interpret=True, _abort_after=2)
     z = np.load(path)
     assert int(z["samples_done"]) == 4
     resumed = _render_pallas_checkpointed(
         cam, scene, samples=8, depth=3, seed=5, checkpoint=path,
-        block_spp=2)
+        block_spp=2, interpret=True)
     np.testing.assert_array_equal(np.asarray(full.data),
                                   np.asarray(resumed.data))
 
     # mismatched config aborts instead of silently mixing estimators
     with pytest.raises(ValueError, match="different render config"):
         _render_pallas_checkpointed(cam, scene, samples=8, depth=4, seed=5,
-                                    checkpoint=path, block_spp=2)
+                                    checkpoint=path, block_spp=2,
+                                    interpret=True)

@@ -4,6 +4,7 @@ acceptance criterion) and estimator sanity."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import pathtracer_tpu as pt
 from pathtracer_tpu import diff
@@ -107,19 +108,18 @@ def _bvh_scene(res=(8, 8)):
 
 
 def test_diff_backends_match_brute():
-    """BVH and cluster diff backends must produce the same film as brute
+    """Both BVH diff backends must produce the same film as brute
     (identical RNG streams + exact traversal => same radiance up to shared
     -edge tie-breaks, which this fixed seed does not hit)."""
     cam, scene = _bvh_scene()
     params = diff.material_params(scene)
     films = {}
-    for backend in ("brute", "bvh", "cluster"):
+    for backend in ("brute", "bvh", "bvh-gather", "auto"):
         films[backend] = np.asarray(diff.render_film_diff(
             cam, scene, params, samples=2, depth=3, backend=backend))
-    np.testing.assert_allclose(films["bvh"], films["brute"],
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(films["cluster"], films["brute"],
-                               rtol=1e-3, atol=1e-4)
+    for backend in ("bvh", "bvh-gather", "auto"):
+        np.testing.assert_allclose(films[backend], films["brute"],
+                                   rtol=1e-4, atol=1e-5, err_msg=backend)
 
 
 def test_gradcheck_bvh_backend():
@@ -134,12 +134,38 @@ def test_gradcheck_bvh_backend():
     assert max_rel < 5e-2, (max_abs, max_rel)
 
 
-def test_grad_cluster_backend_finite_nonzero():
+@pytest.mark.parametrize("backend", ["bvh", "bvh-gather"])
+def test_grad_bvh_backends_match_brute(backend):
+    """The gradient rule does not depend on the traversal: material
+    gradients through either BVH traversal equal the brute ones.  The
+    table gather's gradient is a scatter-add, whose summation order may
+    differ between backends and (on a GPU) between runs, hence rtol."""
     cam, scene = _bvh_scene()
     params = diff.material_params(scene)
-    loss = diff.make_loss(cam, scene, target=jnp.zeros((8, 8, 3)),
-                          samples=2, depth=3, backend="cluster")
-    g = jax.grad(loss)(params)
+    target = jnp.zeros((8, 8, 3))
+    g_ref = jax.grad(diff.make_loss(cam, scene, target, samples=2,
+                                    depth=3))(params)
+    g = jax.grad(diff.make_loss(cam, scene, target, samples=2, depth=3,
+                                backend=backend))(params)
     for k in g:
-        assert np.all(np.isfinite(np.asarray(g[k]))), k
+        np.testing.assert_allclose(np.asarray(g[k]), np.asarray(g_ref[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
     assert float(jnp.abs(g["albedo"]).sum()) > 0
+
+
+def test_gather_features_masks_misses():
+    """Shade-table gather: a plain float32 take for every table size,
+    misses (-1) read as zero rows, and the gradient scatters into the
+    table rows that were hit."""
+    from pathtracer_tpu.ops.trace import gather_features
+
+    table = jnp.arange(5 * 12, dtype=jnp.float32).reshape(5, 12) / 7.0
+    tid = jnp.array([[0, -1], [4, 2]], jnp.int32)
+    feat = gather_features(table, tid)
+    np.testing.assert_array_equal(np.asarray(feat[0, 0]),
+                                  np.asarray(table[0]))
+    np.testing.assert_array_equal(np.asarray(feat[0, 1]), 0.0)
+    np.testing.assert_array_equal(np.asarray(feat[1, 0]),
+                                  np.asarray(table[4]))
+    g = jax.grad(lambda t: gather_features(t, tid).sum())(table)
+    np.testing.assert_array_equal(np.asarray(g[:, 0]), [1, 0, 1, 0, 1])

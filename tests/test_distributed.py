@@ -3,7 +3,7 @@
 Launches two real OS processes, each with 2 virtual CPU devices, wired
 together with ``jax.distributed`` through parallel/distributed.initialize —
 the actual multi-host code path (the reference has no distributed story at
-all; this is a new capability of the TPU framework).  Verifies:
+all; this is a new capability of this framework).  Verifies:
 
   * process discovery (process_count / device_count / is_primary);
   * a psum over a mesh that SPANS both processes;

@@ -1,7 +1,7 @@
 """Golden-image regression: renders must stay radiometrically and
 structurally anchored to the reference's checked-in PNGs
-(examples/cornell_box.png etc.).  Full-resolution matched-spp PSNR runs on
-TPU (see README numbers); here a low-res statistical anchor keeps CI fast."""
+(examples/cornell_box.png etc.).  A full-resolution matched-spp PSNR run
+needs an accelerator; here a low-res statistical anchor keeps CI fast."""
 
 import os
 
@@ -33,11 +33,10 @@ def test_cornell_matches_golden_statistics():
 
     # Structural agreement in gamma space after clamping.  At this config
     # (64^2, 128 spp, 16x-downsampled golden) the comparison measures
-    # 22.3-22.5 dB across seeds — our own Monte-Carlo noise floor; the
-    # matched-10k-spp full-res comparison on TPU reaches ~40 dB, the
-    # independent-render floor.  Assert the measured floor minus ~2 dB so
-    # a structural break (wrong wall, shifted light, radiometric skew)
-    # fails even when a pure noise regression would not.
+    # 22.3-22.5 dB across seeds — our own Monte-Carlo noise floor.  Assert
+    # the measured floor minus ~2 dB so a structural break (wrong wall,
+    # shifted light, radiometric skew) fails even when a pure noise
+    # regression would not.
     ours_g = np.clip(ours_lin, 0, 1) ** (1 / 2.2)
     p = pt.psnr(ours_g, ref_small)
     assert p > 20.0, f"PSNR vs golden dropped to {p:.2f} dB"
@@ -59,10 +58,9 @@ def _gamma(x):
 
 
 def test_cornell_matches_converged_self_golden():
-    """Round-2 review item: a committed CONVERGED truth (65,536 spp,
-    seed-averaged on TPU; 32k-vs-32k self-consistency 45.1 dB) plus a
-    pinned-seed CPU snapshot, so CI catches regressions the noisy
-    reference-golden anchor cannot:
+    """A committed CONVERGED truth (65,536 spp, seed-averaged; 32k-vs-32k
+    self-consistency 45.1 dB) plus a pinned-seed CPU snapshot, so CI
+    catches regressions the noisy reference-golden anchor cannot:
 
       * PSNR vs the pinned 256-spp snapshot (same seed/backend) must stay
         near-exact — ANY change to sampling, intersection, or shading

@@ -1,5 +1,5 @@
 """Driver entry points (__graft_entry__.py) must stay importable and
-executable on the CPU mesh."""
+executable on the CPU mesh (megakernel phases in interpret mode)."""
 
 import jax
 import numpy as np
@@ -20,7 +20,7 @@ def test_dryrun_multichip_8():
         pytest.skip("needs 8 virtual devices")
     import __graft_entry__ as g
 
-    g.dryrun_multichip(8)
+    g.dryrun_multichip(8, interpret=True)
 
 
 def test_dryrun_multichip_2():
@@ -28,4 +28,4 @@ def test_dryrun_multichip_2():
         pytest.skip("needs 2 devices")
     import __graft_entry__ as g
 
-    g.dryrun_multichip(2)
+    g.dryrun_multichip(2, interpret=True)

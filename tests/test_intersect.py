@@ -1,8 +1,11 @@
 """Intersection correctness: dense brute-force and BVH traversal versus a
 scalar transcription of Möller–Trumbore (triangle.h:25-44)."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 import pathtracer_tpu as pt
 from pathtracer_tpu.linalg import EPS, FLOAT_INF
@@ -146,3 +149,46 @@ def test_bvh_packet_matches_brute(rng_np):
             packet_rays=pr)
         np.testing.assert_array_equal(np.asarray(ib), np.asarray(ip))
         np.testing.assert_allclose(np.asarray(tb), np.asarray(tp), rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed,n_tris,n_rays", [(1, 50, 128), (2, 300, 256),
+                                                (3, 1200, 512)])
+def test_bvh_packet_matches_per_ray_stack(seed, n_tris, n_rays):
+    """The two XLA traversals the GPU policy chooses between — packets
+    sharing one stack ('bvh') and one stack per ray ('bvh-gather') — visit
+    the same leaves and return the same (t, tid)."""
+    r = np.random.default_rng(seed)
+    scene = _random_scene(r, n_tris=n_tris)
+    bvh = pt.build_bvh(scene)
+    o = jnp.asarray(r.uniform(-8, 8, (n_rays, 3)).astype(np.float32))
+    d = r.normal(size=(n_rays, 3)).astype(np.float32)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    kw = dict(max_leaf=bvh.max_leaf, stack_size=bvh.stack_size())
+    tg, ig = isect.intersect_bvh(o, d, bvh, scene.v1, scene.v2, scene.v3,
+                                 **kw)
+    tp, ip = isect.intersect_bvh_packet(o, d, bvh, scene.v1, scene.v2,
+                                        scene.v3, packet_rays=64, **kw)
+    assert (np.asarray(ig) >= 0).any()
+    np.testing.assert_array_equal(np.asarray(ip), np.asarray(ig))
+    np.testing.assert_array_equal(np.asarray(tp), np.asarray(tg))
+
+
+def test_render_bvh_vs_bvh_gather_film():
+    """Whole renders through both traversals are the same film."""
+    from pathtracer_tpu import meshes
+
+    cam, sb = meshes.sphere_in_box(8, 16)
+    scene = sb.build()
+    cam = dataclasses.replace(cam, res=(16, 16))
+    bvh = pt.build_bvh(scene)
+    a = pt.render_film(cam, scene, 2, 3, bvh=bvh, backend="bvh")
+    b = pt.render_film(cam, scene, 2, 3, bvh=bvh, backend="bvh-gather")
+    assert np.asarray(a.data).max() > 0
+    np.testing.assert_array_equal(np.asarray(a.data), np.asarray(b.data))
+
+
+@pytest.mark.gpu
+def test_bvh_traversals_agree_on_gpu(gpu_device):
+    """Both traversals compiled for the card return the same hits."""
+    del gpu_device
+    test_bvh_packet_matches_per_ray_stack(3, 1200, 512)

@@ -3,6 +3,7 @@
 import os
 
 import numpy as np
+import pytest
 
 import pathtracer_tpu as pt
 from pathtracer_tpu.realtime import RealtimeSession, render_realtime
@@ -79,29 +80,30 @@ def test_non_accumulate_mode():
 
 
 def test_realtime_auto_picks_beam_for_big_scenes(monkeypatch):
-    """Interactive sessions route OBJ-scale scenes through the beam
-    megakernel on TPU (round-2 review: 'realtime on an OBJ scene would be
-    seconds per frame')."""
-    import importlib
-
-    rt = importlib.import_module("pathtracer_tpu.realtime")
-    render_mod = importlib.import_module("pathtracer_tpu.render")
-    from pathtracer_tpu import meshes
+    """Interactive sessions resolve 'auto' through the platform policy
+    (policy.py): on a GPU, small scenes take the megakernel and OBJ-scale
+    scenes the GPU's BVH traversal (the large-scene kernel this test once
+    covered is gone); on the CPU, brute and bvh.  Explicit backends pass
+    through."""
     import dataclasses
+
+    from pathtracer_tpu import meshes, policy
 
     cam, sb = meshes.sphere_in_box(16, 32)  # 1036 tris > BRUTE_MAX
     scene = sb.build()
     cam = dataclasses.replace(cam, res=(32, 32))
-    monkeypatch.setattr(render_mod, "_on_tpu", lambda: True)
-    assert rt._pick_backend(cam, scene, "auto") == "beam"
-    # explicit backends pass through; small scenes stay auto
-    assert rt._pick_backend(cam, scene, "cluster") == "cluster"
     cam2, small = pt.cornell_box(res=(32, 32))
-    assert rt._pick_backend(cam2, small, "auto") == "auto"
-    # odd film shapes route through beam too since round 4 (the kernel
-    # pads to the 64x64 Morton-square grid and crops on host)
-    cam3 = dataclasses.replace(cam, res=(48, 48))
-    assert rt._pick_backend(cam3, scene, "auto") == "beam"
+
+    assert RealtimeSession(cam, scene).backend == "bvh"
+    assert RealtimeSession(cam2, small).backend == "brute"
+    assert RealtimeSession(cam, scene, backend="bvh-gather").backend == \
+        "bvh-gather"
+    monkeypatch.setattr(policy, "platform", lambda: "gpu")
+    assert RealtimeSession(cam, scene).backend == policy.GPU_LARGE_SCENE
+    assert RealtimeSession(cam2, small).backend == "pallas"
+    monkeypatch.setattr(policy, "platform", lambda: "rocm")
+    with pytest.raises(ValueError, match="no backend policy"):
+        RealtimeSession(cam2, small)
 
 
 def test_ansi_frame_renders_halfblocks():

@@ -143,7 +143,7 @@ def test_prime_height_film_ragged_tiles():
     render_mod = sys.modules["pathtracer_tpu.render"]
 
     cam, scene = pt.cornell_box(res=(32, 37))
-    tile_h, _, _ = render_mod._plan(32, 37, 4, scene.padded_size, "brute")
+    tile_h, _, _ = render_mod._plan(32, 37, 4, scene.padded_size)
     assert tile_h == 37  # no divisor search: full height fits one pass
     f = pt.render_film(cam, scene, samples=2, depth=2, seed=5,
                        backend="brute")

@@ -21,9 +21,12 @@ non-zero and no phase carries on past its own failure:
                  the CPU snapshot tests/goldens/cornell64_cpu256_seed11.npz
   5. large       the 9,812- and 105,708-triangle scenes at 256^2 through
                  "auto" (the GPU's BVH traversal); the 9.8k film against
-                 brute on the card; BVH build time and time to first image
+                 brute on the card, and the packet traversal "bvh" against
+                 brute there too; BVH build time and time to first image
   6. diff        jitted recover_materials steps on the Cornell box, and one
-                 value-and-grad step on the 9.8k scene through "bvh"
+                 value-and-grad step on the 9.8k scene through "auto" (the
+                 GPU's BVH traversal) and through "bvh", each checked
+                 against brute's loss and gradients
   7. realtime    a RealtimeSession for a few frames
   8. gpu tests   the tests marked ``gpu``, in-process (pytest -m gpu)
   9. last line   {"ok": true, "device": {...}} as JAX reports the device
@@ -41,7 +44,12 @@ test and send that one path elsewhere.  So:
     moves most pixels;
   * against the CPU snapshot, gamma-space PSNR above GOLDEN_PSNR (40 dB):
     a render that samples, intersects or shades differently lands near
-    the 26 dB Monte-Carlo floor, far below.
+    the 26 dB Monte-Carlo floor, far below;
+  * gradients (and the loss) of a BVH traversal against brute's to
+    GRAD_RTOL (1e-3) in relative L1: both sum the same paths, and differ
+    by the order of the scatter-add sums (about 1e-7, and not the same
+    from run to run), while a wrong traversal or gradient rule moves
+    every triangle's entry.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ PIX_RTOL = 5e-2
 PIX_FLOOR = 5e-2
 PIX_FRAC = 1e-2
 GOLDEN_PSNR = 40.0
+GRAD_RTOL = 1e-3
 SHARD_RTOL = 1e-5  # psum / host-loop summation order only
 
 
@@ -122,16 +131,16 @@ def kernel_memory(phase, cam, scene, depth=5):
 
     from pathtracer_tpu.ops.pallas import trace_kernel as tk
 
-    packed = tk.PackedScene(cam, scene, tk.DEFAULT_LOOP)
+    packed = tk.PackedScene(cam, scene)
     width, height = cam.res
     iparams = jnp.array([0, tk._seed_mix(1), height, 0, 1], jnp.int32)
     compiled = tk._launch.lower(
         iparams, packed.cam, packed.tri, packed.table, width=width,
         band_h=height, n_tris=packed.n_tris, depth=depth,
-        has_specular=packed.has_specular, loop=packed.loop,
+        has_specular=packed.has_specular,
         block=tk.DEFAULT_BLOCK, num_warps=tk.DEFAULT_NUM_WARPS,
         interpret=False).compile()
-    log(phase, f"megakernel ({packed.loop}, {width}x{height}) memory: "
+    log(phase, f"megakernel ({width}x{height}) memory: "
                f"{compiled.memory_analysis()}")
 
 
@@ -270,6 +279,13 @@ def phase_large(scenes):
               f"{name} film is black or non-finite")
         if name == "sphere9812":
             compare("large", film, brute_film(cam, scene, spp))
+            # the packet traversal takes a host round trip per while-loop
+            # step on a GPU, so one sample per pixel
+            film, dt = timed(lambda: pt.render_film(
+                cam, scene, 1, 5, bvh=bvh, backend="bvh").data)
+            log("large", f"{name} 256^2 x 1 spp via 'bvh': {dt:.2f} s "
+                         f"(compile included)")
+            compare("large", film, brute_film(cam, scene, 1))
 
 
 def phase_diff(scenes):
@@ -280,7 +296,7 @@ def phase_diff(scenes):
     import numpy as np
 
     import pathtracer_tpu as pt
-    from pathtracer_tpu import diff, inverse
+    from pathtracer_tpu import diff, inverse, policy
 
     cam, scene = pt.cornell_box(res=(64, 64))
     target = jnp.asarray(np.asarray(pt.render_film(cam, scene, 64, 4,
@@ -299,18 +315,37 @@ def phase_diff(scenes):
     # one packet (32^2 x 2 spp)
     cam, scene = scenes["sphere9812"]
     cam = dataclasses.replace(cam, res=(32, 32))
+    check(policy.choose_backend(scene, differentiable=True)
+          == policy.GPU_LARGE_SCENE, "policy skipped the GPU's BVH path")
     params = diff.material_params(scene)
-    loss = diff.make_loss(cam, scene, jnp.zeros((32, 32, 3)), samples=2,
-                          depth=5, backend="bvh")
-    (val, grads), dt = timed(lambda: jax.jit(jax.value_and_grad(loss))(
-        params))
-    gnorm = {k: float(jnp.abs(g).sum()) for k, g in grads.items()}
-    log("diff", f"9.8k scene value-and-grad through 'bvh': loss "
-                f"{float(val):.4e}, |grad| {gnorm}, {dt:.2f} s")
-    check(np.isfinite(float(val)), "non-finite loss")
-    check(all(np.isfinite(np.asarray(g)).all() for g in grads.values()),
-          "non-finite gradient")
-    check(gnorm["albedo"] > 0 and gnorm["emit"] > 0, "zero gradient")
+    results = {}
+    for backend in ("brute", "auto", "bvh"):
+        loss = diff.make_loss(cam, scene, jnp.zeros((32, 32, 3)), samples=2,
+                              depth=5, backend=backend)
+        with jax.default_matmul_precision("highest"):
+            (val, grads), dt = timed(
+                lambda: jax.jit(jax.value_and_grad(loss))(params))
+        val = float(val)
+        grads = {k: np.asarray(g) for k, g in grads.items()}
+        gnorm = {k: float(np.abs(g).sum()) for k, g in grads.items()}
+        log("diff", f"9.8k scene value-and-grad through {backend!r}: loss "
+                    f"{val:.7e}, |grad| {gnorm}, {dt:.2f} s")
+        check(np.isfinite(val), "non-finite loss")
+        check(all(np.isfinite(g).all() for g in grads.values()),
+              "non-finite gradient")
+        check(gnorm["albedo"] > 0 and gnorm["emit"] > 0, "zero gradient")
+        results[backend] = val, grads
+    ref_val, ref = results.pop("brute")
+    for backend, (val, grads) in results.items():
+        errs = {k: float(np.abs(grads[k] - ref[k]).sum()
+                         / np.abs(ref[k]).sum()) for k in ("albedo", "emit")}
+        log("diff", f"{backend!r} vs brute: loss rel diff "
+                    f"{abs(val - ref_val) / ref_val:.2e}, gradient rel L1 "
+                    f"diff {errs} (limit {GRAD_RTOL})")
+        check(abs(val - ref_val) <= GRAD_RTOL * ref_val,
+              f"{backend!r} loss differs from brute")
+        check(max(errs.values()) <= GRAD_RTOL,
+              f"{backend!r} gradients differ from brute")
 
 
 def phase_realtime(out_dir):

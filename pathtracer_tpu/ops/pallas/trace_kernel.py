@@ -21,15 +21,10 @@ whole pipeline without touching device memory in between:
     three planes (Triton blocks are powers of two, so no (..., 3) tile).
 
 The arithmetic follows ops/trace.py and ops/intersect.py operation by
-operation (same RNG streams, sampling formulas and termination rules), so
-with ``loop="mt"`` (the default) the kernel matches ``backend="brute"`` bit
-for bit in interpret mode, and to rounding on the card.  ``loop="plucker"``
-computes the same hit set from precomputed per-triangle coefficients
-(fewer operations per ray-triangle pair), but its terms are products of
-scene coordinates that cancel: at Cornell-box scale (coordinates ~500) on
-an H100 it lets ~0.5 % of paths slip through shared triangle edges and
-darkens the film mean by ~2 % (PERF.md, Findings), so it is not the
-default.
+operation (same RNG streams, Möller–Trumbore intersection, sampling
+formulas and termination rules), so the kernel matches ``backend="brute"``
+bit for bit in interpret mode at one sample per pixel, and to rounding on
+the card.
 
 Interpret mode (``interpret=True``) runs the same kernel on the CPU through
 the Pallas interpreter; it is what the CPU tests use, and is never chosen
@@ -57,8 +52,6 @@ from ...scene import Scene
 from ..trace import TABLE_COLS, shade_table
 
 MAX_PALLAS_TRIS = policy.BRUTE_MAX  # beyond this the policy takes a BVH path
-LOOPS = ("plucker", "mt")
-DEFAULT_LOOP = "mt"
 # Rays per program (a power of two) and warps per program: two rays per
 # thread was the fastest of the (block, warps) pairs swept on an H100
 # (PERF.md, Findings).
@@ -95,7 +88,7 @@ def _rand01(s):
 
 def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
             block: int, width: int, n_tris: int, depth: int,
-            has_specular: bool, spec_tries: int, loop: str):
+            has_specular: bool, spec_tries: int):
     """One block of ``block`` pixels of a band.
 
     ip_ref:  (5,) int32 [sample0, seed_mix, res_y, h0, spp].  ``h0`` is the
@@ -104,8 +97,7 @@ def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
              (pixel, sample) RNG stream depends only on the global (w, h).
     cam_ref: (16,) f32 [pos(3), right(3), up(3), distance*forward(3), cell,
              v_res_x/2, v_res_y/2, pixel_offset].
-    tri_ref: loop="mt": (T, 9) [v1, e1, e2]; loop="plucker": (T, 27), see
-             _triangle_params_plucker.
+    tri_ref: (T, 9) [v1, e1, e2].
     tab_ref: (T, 12) shade table (ops/trace.py).
     out_*:   (block,) radiance SUM over the spp samples, one plane per
              channel.
@@ -134,60 +126,28 @@ def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
     zeros = jnp.zeros((block,), jnp.float32)
     ones = jnp.ones((block,), jnp.float32)
 
-    def nearest(ox, oy, oz, dx, dy, dz, primary):
+    def nearest(ox, oy, oz, dx, dy, dz):
         """(best_t, best_id) over all triangles; best_id = -1 on miss."""
-        if loop == "plucker" and not primary:
-            cx = oy * dz - oz * dy
-            cy = oz * dx - ox * dz
-            cz = ox * dy - oy * dx
 
         def tri_body(t, carry):
             best_t, best_i = carry
-            if loop == "mt":
-                # ops/intersect.intersect_brute, term for term.  `u <= 1`
-                # is implied by `v >= 0 & u + v <= 1` and dropped.
-                v1x, v1y, v1z = tri_ref[t, 0], tri_ref[t, 1], tri_ref[t, 2]
-                e1x, e1y, e1z = tri_ref[t, 3], tri_ref[t, 4], tri_ref[t, 5]
-                e2x, e2y, e2z = tri_ref[t, 6], tri_ref[t, 7], tri_ref[t, 8]
-                hx = dy * e2z - dz * e2y
-                hy = dz * e2x - dx * e2z
-                hz = dx * e2y - dy * e2x
-                a = e1x * hx + e1y * hy + e1z * hz
-                f = 1.0 / a
-                sx, sy, sz = ox - v1x, oy - v1y, oz - v1z
-                u = f * (sx * hx + sy * hy + sz * hz)
-                qx = sy * e1z - sz * e1y
-                qy = sz * e1x - sx * e1z
-                qz = sx * e1y - sy * e1x
-                v = f * (dx * qx + dy * qy + dz * qz)
-                tt = f * (e2x * qx + e2y * qy + e2z * qz)
-            else:
-                # Plücker form: with c = o x d, every per-triangle term is a
-                # dot against precomputed constants (see
-                # _triangle_params_plucker); at bounce 0 the origin is the
-                # camera for every ray, so c is linear in d and the
-                # coefficients fold further.
-                a = (tri_ref[t, 0] * dx + tri_ref[t, 1] * dy
-                     + tri_ref[t, 2] * dz)
-                f = 1.0 / a
-                if primary:
-                    p = (tri_ref[t, 19] * dx + tri_ref[t, 20] * dy
-                         + tri_ref[t, 21] * dz)
-                    q = (tri_ref[t, 22] * dx + tri_ref[t, 23] * dy
-                         + tri_ref[t, 24] * dz)
-                    r = tri_ref[t, 25]
-                else:
-                    p = (tri_ref[t, 10] * cx + tri_ref[t, 11] * cy
-                         + tri_ref[t, 12] * cz + tri_ref[t, 7] * dx
-                         + tri_ref[t, 8] * dy + tri_ref[t, 9] * dz)
-                    q = (tri_ref[t, 16] * cx + tri_ref[t, 17] * cy
-                         + tri_ref[t, 18] * cz + tri_ref[t, 13] * dx
-                         + tri_ref[t, 14] * dy + tri_ref[t, 15] * dz)
-                    r = (tri_ref[t, 3] * ox + tri_ref[t, 4] * oy
-                         + tri_ref[t, 5] * oz + tri_ref[t, 6])
-                u = f * p
-                v = f * q
-                tt = f * r
+            # ops/intersect.intersect_brute, term for term.  `u <= 1` is
+            # implied by `v >= 0 & u + v <= 1` and dropped.
+            v1x, v1y, v1z = tri_ref[t, 0], tri_ref[t, 1], tri_ref[t, 2]
+            e1x, e1y, e1z = tri_ref[t, 3], tri_ref[t, 4], tri_ref[t, 5]
+            e2x, e2y, e2z = tri_ref[t, 6], tri_ref[t, 7], tri_ref[t, 8]
+            hx = dy * e2z - dz * e2y
+            hy = dz * e2x - dx * e2z
+            hz = dx * e2y - dy * e2x
+            a = e1x * hx + e1y * hy + e1z * hz
+            f = 1.0 / a
+            sx, sy, sz = ox - v1x, oy - v1y, oz - v1z
+            u = f * (sx * hx + sy * hy + sz * hz)
+            qx = sy * e1z - sz * e1y
+            qy = sz * e1x - sx * e1z
+            qz = sx * e1y - sy * e1x
+            v = f * (dx * qx + dy * qy + dz * qz)
+            tt = f * (e2x * qx + e2y * qy + e2z * qz)
             ok = ((jnp.abs(a) >= EPS) & (u >= 0.0) & (v >= 0.0)
                   & (u + v <= 1.0) & (tt > 0.0) & (tt < best_t))
             return (jnp.where(ok, tt, best_t),
@@ -198,10 +158,10 @@ def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
             (jnp.full((block,), FLOAT_INF, jnp.float32),
              jnp.full((block,), -1, jnp.int32)))
 
-    def one_bounce(carry, primary):
+    def one_bounce(_, carry):
         (ox, oy, oz, dx, dy, dz, tr, tg, tb, rr, rg, rb, alive,
          seed) = carry
-        best_t, best_i = nearest(ox, oy, oz, dx, dy, dz, primary)
+        best_t, best_i = nearest(ox, oy, oz, dx, dy, dz)
         hit = (best_i >= 0) & alive
         row = jnp.maximum(best_i, 0)
 
@@ -295,12 +255,7 @@ def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
         carry = (zeros + px, zeros + py, zeros + pz,
                  dx / norm, dy / norm, dz / norm, ones, ones, ones,
                  zeros, zeros, zeros, jnp.ones((block,), jnp.bool_), seed)
-        b0 = 0
-        if loop == "plucker" and depth > 0:
-            carry = one_bounce(carry, primary=True)
-            b0 = 1
-        carry = lax.fori_loop(
-            b0, depth, lambda _, c: one_bounce(c, primary=False), carry)
+        carry = lax.fori_loop(0, depth, one_bounce, carry)
         return acc[0] + carry[9], acc[1] + carry[10], acc[2] + carry[11]
 
     acc_r, acc_g, acc_b = lax.fori_loop(0, spp, one_sample,
@@ -313,16 +268,16 @@ def _kernel(ip_ref, cam_ref, tri_ref, tab_ref, out_r, out_g, out_b, *,
 @functools.partial(
     jax.jit,
     static_argnames=("width", "band_h", "n_tris", "depth", "has_specular",
-                     "loop", "block", "num_warps", "interpret"),
+                     "block", "num_warps", "interpret"),
 )
 def _launch(iparams, cam_params, tri_params, table, *, width, band_h,
-            n_tris, depth, has_specular, loop, block, num_warps, interpret):
+            n_tris, depth, has_specular, block, num_warps, interpret):
     """Radiance SUM of a ``band_h x width`` band as (band_h, width, 3)."""
     n_pix = width * band_h
     n_blocks = -(-n_pix // block)
     kern = functools.partial(
         _kernel, block=block, width=width, n_tris=n_tris, depth=depth,
-        has_specular=has_specular, spec_tries=mat.SPECULAR_TRIES, loop=loop)
+        has_specular=has_specular, spec_tries=mat.SPECULAR_TRIES)
     plane = jax.ShapeDtypeStruct((n_blocks * block,), jnp.float32)
     any_spec = pl.BlockSpec(memory_space=pl.ANY)
     out_spec = pl.BlockSpec((block,), lambda i: (i,))
@@ -365,41 +320,6 @@ def _triangle_params(scene: Scene) -> jnp.ndarray:
         [v1, scene.v2[:n] - v1, scene.v3[:n] - v1], axis=-1)
 
 
-def _triangle_params_plucker(scene: Scene, cam_pos) -> jnp.ndarray:
-    """(T, 27) Plücker coefficient rows (host-side, float64 precompute).
-
-      0:3   Na  = -(e1 x e2)          a   = Na . d
-      3:6   N   =  e1 x e2            t*a = N . o + nv
-      6     nv  = -N . v1
-      7:10  kp  = -(e2 x v1)          u*a = e2 . (o x d) + kp . d
-      10:13 e2
-      13:16 kq  = -(v1 x e1)          v*a = me1 . (o x d) + kq . d
-      16:19 me1 = -e1
-      19:22 pc  = e2 x cam_pos + kp   u*a at bounce 0 = pc . d
-      22:25 qc  = me1 x cam_pos + kq  v*a at bounce 0 = qc . d
-      25    r0  = N . cam_pos + nv    t*a at bounce 0
-      26    pad
-    """
-    hv1, hv2, hv3 = scene.host_verts()
-    v1 = hv1.astype(np.float64)
-    e1 = hv2.astype(np.float64) - v1
-    e2 = hv3.astype(np.float64) - v1
-    o = np.asarray(cam_pos, np.float64).reshape(1, 3)
-    nrm = np.cross(e1, e2)
-    kp = -np.cross(e2, v1)
-    kq = -np.cross(v1, e1)
-    me1 = -e1
-    nv = -np.sum(nrm * v1, -1, keepdims=True)
-    # bounce-0 (shared origin) coefficients: x . (o x d) = (x x o) . d
-    pc = np.cross(e2, np.broadcast_to(o, e2.shape)) + kp
-    qc = np.cross(me1, np.broadcast_to(o, me1.shape)) + kq
-    r0 = np.sum(nrm * o, -1, keepdims=True) + nv
-    pad = np.zeros_like(r0)
-    return jnp.asarray(np.concatenate(
-        [-nrm, nrm, nv, kp, e2, kq, me1, pc, qc, r0, pad],
-        axis=-1).astype(np.float32))
-
-
 def _seed_mix(seed: int) -> int:
     """rng.sample_seed's mix constant as an int32 bit pattern (the kernel
     reinterprets it as uint32)."""
@@ -411,19 +331,15 @@ class PackedScene:
     """Host-side packing of (camera, scene) for the kernel, done once per
     render and reused by every launch."""
 
-    def __init__(self, camera: Camera, scene: Scene, loop: str):
-        if loop not in LOOPS:
-            raise ValueError(f"unknown loop {loop!r} (use one of {LOOPS})")
+    def __init__(self, camera: Camera, scene: Scene):
         if scene.num_tris > MAX_PALLAS_TRIS:
             raise ValueError(
                 f"the megakernel supports <= {MAX_PALLAS_TRIS} triangles "
                 f"(got {scene.num_tris}); use a BVH backend")
-        self.loop = loop
         self.n_tris = scene.num_tris
         self.has_specular = scene.has_specular
         self.cam = jnp.asarray(_camera_params(camera))
-        self.tri = (_triangle_params_plucker(scene, camera.pos)
-                    if loop == "plucker" else _triangle_params(scene))
+        self.tri = _triangle_params(scene)
         self.table = shade_table(scene)[: scene.num_tris]
         assert self.table.shape[1] == TABLE_COLS
 
@@ -432,7 +348,7 @@ class PackedScene:
         return _launch(iparams, self.cam, self.tri, self.table,
                        width=width, band_h=band_h, n_tris=self.n_tris,
                        depth=depth, has_specular=self.has_specular,
-                       loop=self.loop, block=block, num_warps=num_warps,
+                       block=block, num_warps=num_warps,
                        interpret=interpret)
 
 
@@ -441,7 +357,6 @@ def render_sum_pallas(camera: Camera, scene: Scene, sample0: int,
                       interpret: bool, block: int = DEFAULT_BLOCK,
                       num_warps: int = DEFAULT_NUM_WARPS,
                       spp_per_call: Optional[int] = None,
-                      loop: Optional[str] = None,
                       verbose: bool = False) -> jnp.ndarray:
     """Radiance SUM over samples [sample0, sample0+samples) as an
     (H, W, 3) array.  Because each (pixel, sample) pair owns an
@@ -451,7 +366,7 @@ def render_sum_pallas(camera: Camera, scene: Scene, sample0: int,
     policy.check_kernel_platform(interpret)
     if block <= 0 or block & (block - 1):
         raise ValueError(f"block must be a power of two (got {block})")
-    packed = PackedScene(camera, scene, loop or DEFAULT_LOOP)
+    packed = PackedScene(camera, scene)
     width, height = camera.res
     if spp_per_call is None:
         spp_per_call = max(1, min(samples, RAYS_PER_CALL // (width * height)))
@@ -478,16 +393,11 @@ def render_film_pallas(camera: Camera, scene: Scene, samples: int,
                        block: int = DEFAULT_BLOCK,
                        num_warps: int = DEFAULT_NUM_WARPS,
                        spp_per_call: Optional[int] = None,
-                       loop: Optional[str] = None,
                        verbose: bool = False) -> Film:
-    """Render the sample-averaged linear film with the megakernel.
-
-    ``loop``: intersection formulation, "mt" (default; operation for
-    operation the XLA path) or "plucker" (fewer operations, not watertight
-    at large coordinates; see the module docstring)."""
+    """Render the sample-averaged linear film with the megakernel."""
     film = render_sum_pallas(
         camera, scene, 0, samples, depth, seed=seed, interpret=interpret,
         block=block, num_warps=num_warps, spp_per_call=spp_per_call,
-        loop=loop, verbose=verbose)
+        verbose=verbose)
     film = film / np.float32(samples)
     return Film(camera.res, data=film.block_until_ready())

@@ -290,7 +290,8 @@ def _render_pallas_checkpointed(camera: Camera, scene: Scene, samples: int,
 
     width, height = camera.res
     if block_spp is None:
-        block_spp = max(1, min(samples, (1 << 24) // (width * height)))
+        block_spp = max(1, min(samples, trace_kernel.RAYS_PER_CALL
+                               // (width * height)))
     meta = {"width": width, "height": height, "samples": samples,
             "depth": depth, "seed": seed, "backend": "pallas",
             "block_spp": block_spp,

@@ -3,9 +3,8 @@
 On the CPU the kernel runs in the Pallas interpreter (``interpret=True``),
 which executes the same kernel body the GPU compiles.  The kernel follows
 ops/trace.py operation by operation, so films match ``backend="brute"`` to
-rounding (``mt`` loop: bit for bit at one sample per pixel; several
-samples differ in the last bit because the kernel sums samples in another
-order).  The ``gpu``-marked tests compile it for the card and skip here.
+rounding (bit for bit at one sample per pixel; several samples differ in
+the last bit because the kernel sums samples in another order).  The ``gpu``-marked tests compile it for the card and skip here.
 """
 
 import dataclasses
@@ -34,10 +33,10 @@ def _scene(name, res=(16, 16)):
     raise ValueError(name)
 
 
-def _kernel_film(cam, scene, spp, depth, seed=1, loop=None, **kw):
+def _kernel_film(cam, scene, spp, depth, seed=1, **kw):
     return np.asarray(tk.render_film_pallas(
-        cam, scene, spp, depth, seed=seed, interpret=True, loop=loop,
-        block=64, **kw).data)
+        cam, scene, spp, depth, seed=seed, interpret=True, block=64,
+        **kw).data)
 
 
 def _brute_film(cam, scene, spp, depth, seed=1):
@@ -67,13 +66,13 @@ def test_pallas_specular_scene():
     np.testing.assert_allclose(got, np.asarray(ref.data), atol=2e-4)
 
 
-@pytest.mark.parametrize("loop", ["mt", "plucker"])
+@pytest.mark.parametrize("seed", [1, 6])
 @pytest.mark.parametrize("name", ["corner", "cornell", "mod0", "mod0.3",
                                   "mod0.8"])
-def test_kernel_matches_brute(name, loop):
+def test_kernel_matches_brute(name, seed):
     cam, scene = _scene(name)
-    ref = _brute_film(cam, scene, 2, 3)
-    got = _kernel_film(cam, scene, 2, 3, loop=loop)
+    ref = _brute_film(cam, scene, 2, 3, seed)
+    got = _kernel_film(cam, scene, 2, 3, seed)
     assert ref.max() > 0
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
@@ -97,12 +96,12 @@ def test_kernel_fuzz_scenes(name):
 @pytest.mark.parametrize("name", ["cornell", "corner"])
 def test_kernel_mt_single_sample_bit_exact(name):
     """With one sample per pixel there is no sum to reorder: on diffuse
-    scenes the mt loop and the XLA path run the same operations on the
-    same values.  (The specular sampler's longer expressions are fused
+    scenes the kernel's Möller–Trumbore loop and the XLA path run the same
+    operations on the same values.  (The specular sampler's longer expressions are fused
     differently by the CPU compiler and may round 1 ulp apart.)"""
     cam, scene = _scene(name)
     np.testing.assert_array_equal(
-        _kernel_film(cam, scene, 1, 4, seed=2, loop="mt"),
+        _kernel_film(cam, scene, 1, 4, seed=2),
         _brute_film(cam, scene, 1, 4, seed=2))
 
 
@@ -149,7 +148,7 @@ def test_band_rows_bit_identical(h0, band_h):
     cam, scene = pt.cornell_box(res=(12, 16))
     full = np.asarray(tk.render_sum_pallas(cam, scene, 0, 2, 2, seed=9,
                                            interpret=True, block=32))
-    packed = tk.PackedScene(cam, scene, tk.DEFAULT_LOOP)
+    packed = tk.PackedScene(cam, scene)
     ip = jnp.array([0, tk._seed_mix(9), 16, h0, 2], jnp.int32)
     band = np.asarray(packed.launch(ip, width=12, band_h=band_h, depth=2,
                                     interpret=True, block=32))
@@ -178,27 +177,24 @@ def test_kernel_argument_checks():
     cam, scene = pt.corner_scene(res=(8, 8))
     with pytest.raises(ValueError, match="power of two"):
         tk.render_film_pallas(cam, scene, 1, 1, interpret=True, block=48)
-    with pytest.raises(ValueError, match="unknown loop"):
-        tk.render_film_pallas(cam, scene, 1, 1, interpret=True, loop="x")
     from pathtracer_tpu import meshes
     _, sb = meshes.sphere_in_box(16, 32)
     with pytest.raises(ValueError, match="triangles"):
-        tk.PackedScene(cam, sb.build(), "mt")
+        tk.PackedScene(cam, sb.build())
 
 
-@pytest.mark.parametrize("loop", ["mt", "plucker"])
-@pytest.mark.parametrize("name", ["cornell", "mod0.3"])
-def test_kernel_lowers_for_cuda(name, loop):
+@pytest.mark.parametrize("name", ["corner", "cornell", "mod0", "mod0.3"])
+def test_kernel_lowers_for_cuda(name):
     """Every primitive of the kernel has a Triton lowering: the kernel
     lowers to a Triton module for CUDA here, without a GPU (compiling it
     to machine code needs the card; see the gpu-marked tests)."""
     cam, scene = _scene(name, res=(64, 32))
-    packed = tk.PackedScene(cam, scene, loop)
+    packed = tk.PackedScene(cam, scene)
     ip = jnp.array([0, tk._seed_mix(1), 32, 0, 2], jnp.int32)
     lowered = tk._launch.trace(
         ip, packed.cam, packed.tri, packed.table, width=64, band_h=32,
         n_tris=packed.n_tris, depth=5, has_specular=packed.has_specular,
-        loop=loop, block=tk.DEFAULT_BLOCK, num_warps=tk.DEFAULT_NUM_WARPS,
+        block=tk.DEFAULT_BLOCK, num_warps=tk.DEFAULT_NUM_WARPS,
         interpret=False).lower(lowering_platforms=("cuda",))
     text = lowered.as_text()
     assert "__gpu$xla.gpu.triton" in text
